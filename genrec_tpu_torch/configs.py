@@ -1,0 +1,116 @@
+"""Configuration dataclasses of the port.
+
+A copy of ``genrec_tpu.configs``' ``MeshConfig``, ``TrainerConfig``,
+``T5ArchConfig`` and ``TIGERConfig``: the same fields with the same
+defaults, so that a configuration compares field for field with the
+reference's. Defaults reproduce the reference configuration
+(`RQVAE-T5/main.py:4-35`, `RQVAE-T5/model.py:9-23`).
+
+``T5ArchConfig.fused_attention`` stays as a field for that comparison, but
+the port does not read it: the port always runs attention without a KV
+cache (encoder self-attention, and the decoder in full-sequence
+``decode``) through the structured-bias fused kernel path
+(``ops/t5_attention.py``). In the deterministic forward the reference's two
+choices ("on" and "off") compute the same function, so nothing is lost.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout (``data`` × ``model`` must divide the device
+    count; -1 puts all devices on the data axis)."""
+
+    data_axis: int = -1
+    model_axis: int = 1
+    axis_names: Tuple[str, str] = ("data", "model")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerConfig:
+    """Shared trainer knobs. The port's trainer is not written yet; the
+    fields are kept so TIGERConfig compares with the reference."""
+
+    batch_size: int = 128
+    eval_batch_size: int = 128
+    epochs: int = 100
+    lr: float = 1e-3
+    adam_betas: Tuple[float, float] = (0.9, 0.98)
+    weight_decay: float = 0.0
+    optimizer: str = "adam"  # adam | adamw | sgd | adagrad | rmsprop
+    lr_scheduler: str = "constant"  # constant | linear
+    warmup_epochs: int = 0
+    grad_clip_norm: Optional[float] = None
+    early_stop_patience: int = 10
+    seed: int = 42
+    ckpt_dir: str = "./ckpt"
+    log_path: Optional[str] = None
+    loss_plot_path: Optional[str] = None
+    results_csv_path: Optional[str] = None
+    resume: bool = False
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+    keep_checkpoints: int = 5
+    ckpt_every_epochs: int = 1
+    bucket_interleave_chunks: int = 4
+    profile_dir: Optional[str] = None
+    shard_dataset: Optional[bool] = None
+    composite_mix: float = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class T5ArchConfig:
+    """Scratch T5 architecture (HF `T5Config` semantics): relative position
+    biases, RMS layer norm, relu feed-forward, tied embeddings with
+    d_model**-0.5 logit scaling, unscaled attention."""
+
+    vocab_size: int = 64
+    num_layers: int = 2          # encoder layers
+    num_decoder_layers: int = 2
+    d_model: int = 64
+    d_ff: int = 256
+    num_heads: int = 4
+    d_kv: int = 16
+    dropout_rate: float = 0.1
+    feed_forward_proj: str = "relu"
+    layer_norm_epsilon: float = 1e-6
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    pad_token_id: int = 0
+    eos_token_id: int = 31  # overlaps the level-3 code range; kept for parity
+    decoder_start_token_id: int = 0  # = pad (RQVAE-T5/model.py:22)
+    tie_word_embeddings: bool = True
+    fused_attention: str = "auto"  # not read by the port (module docstring)
+    dtype: str = "float32"  # the port computes in float32 only so far
+    remat: bool = False
+    attn_remat_dropout: bool = False
+    ffn_remat_dropout: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TIGERConfig:
+    """TIGER generative retriever. Mirrors `RQVAE-T5/main.py:4-35`."""
+
+    task_id: str = "task1"
+    code_path: str = "data/course/course_rqvae_codes.npy"
+    train_dataset_path: str = "data/tiger/train_dataset.h5"
+    test_dataset_path: str = "data/tiger/test_dataset.h5"
+    arch: T5ArchConfig = dataclasses.field(default_factory=T5ArchConfig)
+    codebook_size: int = 8
+    code_dim: int = 4  # 3 RQ levels + 1 collision-disambiguation digit
+    max_len: int = 20  # history length in items → 80 input tokens
+    max_gen_len: int = 5  # decoder_start + 4 code tokens
+    beam_size: int = 5
+    topk_list: Tuple[int, ...] = (2, 5, 10, 20)
+    target_len_buckets: int = 1
+    constrained_decoding: str = "level"  # none | level | trie
+    trainer: TrainerConfig = dataclasses.field(
+        default_factory=lambda: TrainerConfig(batch_size=256, eval_batch_size=256,
+                                              epochs=500, lr=1e-3)
+    )
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    target_len_composite: int = 0

@@ -1,0 +1,376 @@
+"""Scratch T5 encoder-decoder in PyTorch, deterministic forward.
+
+Counterpart of ``genrec_tpu/models/t5.py`` with the same numerics: RMS
+layer norm (no bias or mean), relative-position bucket biases (one table
+per stack, bidirectional for the encoder only), bias-free projections,
+unscaled attention, relu feed-forward, tied embeddings with d_model**-0.5
+logit rescaling, decoder_start = pad. Module and parameter names follow
+the reference's Flax tree, so ``convert.tiger_params_from_flax`` maps it
+leaf for leaf.
+
+Attention takes one of two paths:
+- without a KV cache (encoder self-attention; the decoder's self- and
+  cross-attention in full-sequence ``decode``) the structured-bias path:
+  the per-head bias (H, Lq, Lk), with the causal mask folded into it, and
+  the (B, Lk) key mask go separately to the fused kernel
+  (``ops/t5_attention.py``), in its flat (H·B, L, D) layout;
+- with a KV cache (``decode_step``) the plain path: decoder self-attention
+  through ``ops/attention.dot_product_attention`` with q pre-scaled by
+  √d_kv to cancel its 1/√d, and cross-attention with the beams folded into
+  the query axis (``T5Attention._cross_attend_beams``).
+
+Dropout and the training backward come with the training slice; this
+module computes the deterministic forward only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from genrec_tpu_torch.configs import T5ArchConfig
+from genrec_tpu_torch.ops.attention import dot_product_attention
+from genrec_tpu_torch.ops.t5_attention import fused_t5_attention_flat
+
+_NEG_INF = -1e9
+
+KV = Tuple[torch.Tensor, torch.Tensor]
+
+
+@dataclasses.dataclass
+class AttnSpec:
+    """Structured attention inputs for the fused kernel: the per-head bias
+    (H, Lq, Lk), with any causal mask already folded in, and the
+    key-padding mask (B, Lk), kept apart instead of summed into one dense
+    (B, H, Lq, Lk) bias."""
+
+    pos_bias: Optional[torch.Tensor]
+    kv_mask: Optional[torch.Tensor]
+
+
+def _normal_(t: torch.Tensor, std: float, generator: Optional[torch.Generator]):
+    with torch.no_grad():
+        nn.init.normal_(t, 0.0, std, generator=generator)
+
+
+class RMSNorm(nn.Module):
+    """T5LayerNorm: scale-only RMS normalization."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x):
+        var = x.float().square().mean(dim=-1, keepdim=True)
+        x = x * torch.rsqrt(var + self.eps)
+        return (self.weight * x).to(x.dtype)
+
+
+def relative_position_bucket(relative_position: torch.Tensor, *, bidirectional: bool,
+                             num_buckets: int, max_distance: int) -> torch.Tensor:
+    """HF T5 bucket function (memory_pos - query_pos → bucket id), with the
+    reference's f32 log and int32 truncation."""
+    relative_position = relative_position.to(torch.int32)
+    ret = torch.zeros_like(relative_position)
+    if bidirectional:
+        num_buckets //= 2
+        ret = ret + (relative_position > 0).to(torch.int32) * num_buckets
+        rel = relative_position.abs()
+    else:
+        rel = -torch.clamp(relative_position, max=0)
+    max_exact = num_buckets // 2
+    is_small = rel < max_exact
+    log_ratio = torch.log(torch.tensor(max_distance / max_exact, dtype=torch.float32,
+                                       device=rel.device))
+    rel_if_large = max_exact + (
+        torch.log(torch.clamp(rel, min=1).to(torch.float32) / max_exact)
+        / log_ratio * (num_buckets - max_exact)
+    ).to(torch.int32)
+    rel_if_large = torch.clamp(rel_if_large, max=num_buckets - 1)
+    return ret + torch.where(is_small, rel, rel_if_large)
+
+
+class RelativePositionBias(nn.Module):
+    def __init__(self, cfg: T5ArchConfig, bidirectional: bool):
+        super().__init__()
+        self.cfg = cfg
+        self.bidirectional = bidirectional
+        self.rel_embedding = nn.Parameter(
+            torch.empty(cfg.relative_attention_num_buckets, cfg.num_heads))
+
+    def reset_parameters(self, generator=None):
+        _normal_(self.rel_embedding, (self.cfg.d_model // self.cfg.num_heads) ** -0.5,
+                 generator)
+
+    def buckets(self, qlen: int, klen: int) -> torch.Tensor:
+        dev = self.rel_embedding.device
+        ctx = torch.arange(qlen, device=dev)[:, None]
+        mem = torch.arange(klen, device=dev)[None, :]
+        return relative_position_bucket(
+            mem - ctx, bidirectional=self.bidirectional,
+            num_buckets=self.cfg.relative_attention_num_buckets,
+            max_distance=self.cfg.relative_attention_max_distance)
+
+    def forward(self, qlen: int, klen: int) -> torch.Tensor:
+        bias = self.rel_embedding[self.buckets(qlen, klen)]  # (q, k, heads)
+        return bias.permute(2, 0, 1)[None]                   # (1, heads, q, k)
+
+
+class T5Attention(nn.Module):
+    def __init__(self, cfg: T5ArchConfig):
+        super().__init__()
+        self.cfg = cfg
+        inner = cfg.num_heads * cfg.d_kv
+        self.q = nn.Linear(cfg.d_model, inner, bias=False)
+        self.k = nn.Linear(cfg.d_model, inner, bias=False)
+        self.v = nn.Linear(cfg.d_model, inner, bias=False)
+        self.o = nn.Linear(inner, cfg.d_model, bias=False)
+
+    def reset_parameters(self, generator=None):
+        c = self.cfg
+        inner = c.num_heads * c.d_kv
+        _normal_(self.q.weight, (c.d_model * c.d_kv) ** -0.5, generator)
+        _normal_(self.k.weight, c.d_model ** -0.5, generator)
+        _normal_(self.v.weight, c.d_model ** -0.5, generator)
+        _normal_(self.o.weight, inner ** -0.5, generator)
+
+    def _split_heads(self, t):
+        b, l, _ = t.shape
+        return t.view(b, l, self.cfg.num_heads, self.cfg.d_kv).transpose(1, 2)
+
+    def project_kv(self, kv) -> KV:
+        """(B, Lk, d_model) → per-head K/V (B, heads, Lk, d_kv), computed once
+        per sample and reused at every decode step."""
+        return self._split_heads(self.k(kv)), self._split_heads(self.v(kv))
+
+    @staticmethod
+    def _cross_attend_beams(qh, kh, vh, bias, num_beams: int):
+        """Cross-attention with beams folded into the QUERY-LENGTH axis.
+
+        qh: (B·m, h, s, dkv) queries of m beams per sample; kh/vh:
+        (B, h, Le, dkv) per-sample K/V, never repeated per beam. Unscaled
+        dot product; ``bias`` (B, 1, 1, Le) is the same for every beam."""
+        bm, h, s, dkv = qh.shape
+        b = bm // num_beams
+        q2 = (qh.reshape(b, num_beams, h, s, dkv)
+              .transpose(1, 2).reshape(b, h, num_beams * s, dkv))
+        logits = torch.matmul(q2.float(), kh.float().transpose(-1, -2))
+        if bias is not None:
+            logits = logits + bias
+        probs = torch.softmax(logits, dim=-1).to(vh.dtype)
+        ctx = torch.matmul(probs, vh)
+        return (ctx.reshape(b, h, num_beams, s, dkv)
+                .transpose(1, 2).reshape(bm, h, s, dkv))
+
+    def forward(self, x, kv, bias, *, kv_cache: Optional[KV] = None,
+                kv_beams: Optional[int] = None):
+        c = self.cfg
+        h, dkv = c.num_heads, c.d_kv
+        inner = h * dkv
+        b, lq = x.shape[0], x.shape[1]
+        if isinstance(bias, AttnSpec):
+            if kv_cache is not None:
+                raise ValueError("AttnSpec with kv_cache is unsupported")
+            lk = kv.shape[1]
+
+            def flat(t, ll):  # (B, L, H·D) → (H·B, L, D), head slowest
+                # at B = 1 the reshape is a strided view: make it contiguous
+                return (t.view(b, ll, h, dkv).permute(2, 0, 1, 3)
+                        .reshape(h * b, ll, dkv).contiguous())
+
+            of = fused_t5_attention_flat(flat(self.q(x), lq), flat(self.k(kv), lk),
+                                         flat(self.v(kv), lk), h, bias.pos_bias,
+                                         bias.kv_mask)
+            out = of.view(h, b, lq, dkv).permute(1, 2, 0, 3).reshape(b, lq, inner)
+            return self.o(out)
+        qh = self._split_heads(self.q(x))
+        kh, vh = kv_cache if kv_cache is not None else self.project_kv(kv)
+        if kv_cache is not None and kv_beams is not None and kv_beams > 1:
+            out = self._cross_attend_beams(qh, kh, vh, bias, kv_beams)
+        else:
+            # T5 uses an unscaled dot product; dot_product_attention divides
+            # by sqrt(d_kv), so pre-scale q to cancel it.
+            out = dot_product_attention(qh * (dkv ** 0.5), kh, vh, bias)
+        return self.o(out.transpose(1, 2).reshape(b, lq, inner))
+
+
+class T5FeedForward(nn.Module):
+    def __init__(self, cfg: T5ArchConfig):
+        super().__init__()
+        if cfg.feed_forward_proj not in ("relu", "gelu", "gated-gelu"):
+            raise ValueError(cfg.feed_forward_proj)
+        self.cfg = cfg
+        self.wi = nn.Linear(cfg.d_model, cfg.d_ff, bias=False)
+        self.wo = nn.Linear(cfg.d_ff, cfg.d_model, bias=False)
+
+    def reset_parameters(self, generator=None):
+        _normal_(self.wi.weight, self.cfg.d_model ** -0.5, generator)
+        _normal_(self.wo.weight, self.cfg.d_ff ** -0.5, generator)
+
+    def forward(self, x):
+        h = self.wi(x)
+        if self.cfg.feed_forward_proj == "relu":
+            h = F.relu(h)
+        else:  # flax nn.gelu is the tanh approximation
+            h = F.gelu(h, approximate="tanh")
+        return self.wo(h)
+
+
+class T5Block(nn.Module):
+    def __init__(self, cfg: T5ArchConfig, is_decoder: bool):
+        super().__init__()
+        self.is_decoder = is_decoder
+        eps = cfg.layer_norm_epsilon
+        self.self_norm = RMSNorm(cfg.d_model, eps)
+        self.self_attn = T5Attention(cfg)
+        if is_decoder:
+            self.cross_norm = RMSNorm(cfg.d_model, eps)
+            self.cross_attn = T5Attention(cfg)
+        self.ff_norm = RMSNorm(cfg.d_model, eps)
+        self.ff = T5FeedForward(cfg)
+
+    def forward(self, x, self_bias, enc_out=None, cross_mask=None,
+                cross_kv: Optional[KV] = None, cross_kv_beams: Optional[int] = None):
+        h = self.self_norm(x)
+        x = x + self.self_attn(h, h, self_bias)
+        if self.is_decoder and (enc_out is not None or cross_kv is not None):
+            h = self.cross_norm(x)
+            x = x + self.cross_attn(h, enc_out, cross_mask, kv_cache=cross_kv,
+                                    kv_beams=cross_kv_beams)
+        h = self.ff_norm(x)
+        return x + self.ff(h)
+
+
+def _extend_mask(attention_mask: torch.Tensor) -> torch.Tensor:
+    """(B, Lk) 1/0 mask → additive (B, 1, 1, Lk) bias."""
+    return (1.0 - attention_mask[:, None, None, :].float()) * _NEG_INF
+
+
+def _causal_bias(length: int, device) -> torch.Tensor:
+    row = torch.arange(length, device=device)[:, None]
+    col = torch.arange(length, device=device)[None, :]
+    return torch.where(col > row, _NEG_INF, 0.0).to(torch.float32)
+
+
+class T5Stack(nn.Module):
+    def __init__(self, cfg: T5ArchConfig, num_layers: int, is_decoder: bool):
+        super().__init__()
+        self.is_decoder = is_decoder
+        self.rel_bias = RelativePositionBias(cfg, bidirectional=not is_decoder)
+        self.blocks = nn.ModuleList(T5Block(cfg, is_decoder) for _ in range(num_layers))
+        self.final_norm = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon)
+
+    def forward(self, inputs_embeds, attention_mask=None, enc_out=None, enc_mask=None,
+                *, cross_kvs: Optional[Sequence[KV]] = None,
+                cross_kv_beams: Optional[int] = None):
+        lq = inputs_embeds.shape[1]
+        dev = inputs_embeds.device
+        if cross_kvs is None:
+            pos = self.rel_bias(lq, lq)[0]  # (H, Lq, Lq)
+            if self.is_decoder:
+                pos = pos + _causal_bias(lq, dev)  # causal folded into the bias
+            contig = lambda m: None if m is None else m.contiguous()  # noqa: E731
+            self_bias = AttnSpec(pos.contiguous(), contig(attention_mask))
+            cross_mask = AttnSpec(None, contig(enc_mask)) if enc_out is not None else None
+        else:
+            self_bias = self.rel_bias(lq, lq)
+            if self.is_decoder:
+                self_bias = self_bias + _causal_bias(lq, dev)
+            if attention_mask is not None:
+                self_bias = self_bias + _extend_mask(attention_mask)
+            cross_mask = _extend_mask(enc_mask) if enc_mask is not None else None
+        x = inputs_embeds
+        for i, block in enumerate(self.blocks):
+            x = block(x, self_bias, enc_out, cross_mask,
+                      None if cross_kvs is None else cross_kvs[i], cross_kv_beams)
+        return self.final_norm(x)
+
+    def precompute_cross_kv(self, enc_out) -> Tuple[KV, ...]:
+        """Per-layer cross-attention K/V of a fixed encoder output (decoder
+        stacks only), hoisted out of the generation step loop."""
+        return tuple(block.cross_attn.project_kv(enc_out) for block in self.blocks)
+
+
+def shift_right(labels: torch.Tensor, decoder_start: int, pad_id: int) -> torch.Tensor:
+    """HF `_shift_right`: prepend decoder_start, drop last, -100 → pad."""
+    start = torch.full((labels.shape[0], 1), decoder_start, dtype=labels.dtype,
+                       device=labels.device)
+    shifted = torch.cat([start, labels[:, :-1]], dim=1)
+    return torch.where(shifted == -100, torch.full_like(shifted, pad_id), shifted)
+
+
+def cross_entropy_with_ignore(logits: torch.Tensor, labels: torch.Tensor,
+                              ignore_index: int = -100) -> torch.Tensor:
+    """Mean CE over non-ignored targets (HF labels convention)."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None].long())[..., 0]
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return nll.sum() / torch.clamp(valid.sum(), min=1)
+
+
+class T5EncoderDecoder(nn.Module):
+    def __init__(self, cfg: T5ArchConfig, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.dtype != "float32":
+            raise NotImplementedError("the port computes in float32 only so far")
+        if not cfg.tie_word_embeddings:
+            raise NotImplementedError("untied lm_head not needed at parity scale")
+        self.cfg = cfg
+        self.shared = nn.Embedding(cfg.vocab_size, cfg.d_model)
+        self.encoder = T5Stack(cfg, cfg.num_layers, is_decoder=False)
+        self.decoder = T5Stack(cfg, cfg.num_decoder_layers, is_decoder=True)
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """Re-draw every weight from the reference's initialisers (normal
+        with the Flax stddevs; RMSNorm weights at 1), from ``generator``."""
+        _normal_(self.shared.weight, 1.0, generator)
+        for m in self.modules():
+            if isinstance(m, (RelativePositionBias, T5Attention, T5FeedForward)):
+                m.reset_parameters(generator)
+            elif isinstance(m, RMSNorm):
+                nn.init.ones_(m.weight)
+
+    def encode(self, input_ids=None, attention_mask=None, inputs_embeds=None):
+        if inputs_embeds is None:
+            inputs_embeds = self.shared(input_ids)
+        return self.encoder(inputs_embeds, attention_mask)
+
+    def decode(self, decoder_input_ids, enc_out, enc_mask=None):
+        x = self.shared(decoder_input_ids)
+        x = self.decoder(x, None, enc_out, enc_mask)
+        return self.lm_logits(x)
+
+    def precompute_cross_kv(self, enc_out) -> Tuple[KV, ...]:
+        return self.decoder.precompute_cross_kv(enc_out)
+
+    def decode_step(self, decoder_prefix_ids, cross_kvs, enc_mask=None, num_beams=None):
+        """Next-token logits (B, V) for a (B, steps_so_far) decoder prefix.
+
+        Runs the stack only over the live prefix and projects logits at the
+        last position; the encoder enters through the precomputed
+        ``cross_kvs``. With ``num_beams``, ``cross_kvs``/``enc_mask`` are
+        per sample (batch B) and the prefix is (B·num_beams, s)."""
+        x = self.shared(decoder_prefix_ids)
+        x = self.decoder(x, None, None, enc_mask, cross_kvs=cross_kvs,
+                         cross_kv_beams=num_beams)
+        return self.lm_logits(x[:, -1, :])
+
+    def lm_logits(self, hidden):
+        hidden = hidden * (self.cfg.d_model ** -0.5)
+        return torch.matmul(hidden.float(), self.shared.weight.float().t())
+
+    def forward(self, input_ids=None, attention_mask=None, labels=None, inputs_embeds=None):
+        """(loss, logits) like `RQVAE-T5/model.py:42-60`, deterministic."""
+        c = self.cfg
+        enc_out = self.encode(input_ids, attention_mask, inputs_embeds)
+        decoder_input_ids = shift_right(labels, c.decoder_start_token_id, c.pad_token_id)
+        logits = self.decode(decoder_input_ids, enc_out, attention_mask)
+        return cross_entropy_with_ignore(logits, labels), logits

@@ -1,0 +1,111 @@
+"""Fixed-shape beam search with optional constrained decoding.
+
+Counterpart of ``genrec_tpu/ops/beam_search.py``: beam tensors are
+(B, beams, max_len) and beams fold into the batch dimension for the decoder
+call; the decoder re-attends over the live prefix at every step. Modes:
+``none`` (unconstrained), ``level`` (each step masked to its semantic-ID
+level range) and ``trie`` (a prefix trie over the actual item codes, so
+every decoded tuple is a real item). A beam that emits eos is frozen and
+extends with pad at zero cost. Beams 1.. start at −1e30, so many candidates
+tie exactly at −1e30 or −2e30: the top-k and the final ordering use
+STABLE sorts, keeping the lower flat index first on ties as
+``lax.top_k`` and ``jnp.argsort`` do, so tokens match the reference
+exactly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple
+
+import torch
+
+_NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class ConstraintSpec:
+    """Decode-constraint tables (any device; moved to the search's)."""
+
+    mode: str = "none"  # none | level | trie
+    level_masks: Optional[torch.Tensor] = None   # (steps, V) bool
+    trie: Optional[torch.Tensor] = None          # (total_prefixes, V) bool
+    trie_offsets: Optional[torch.Tensor] = None  # (steps,) int
+    codebook_size: int = 8
+
+    def to(self, device) -> "ConstraintSpec":
+        move = lambda t: None if t is None else t.to(device)  # noqa: E731
+        return dataclasses.replace(self, level_masks=move(self.level_masks),
+                                   trie=move(self.trie),
+                                   trie_offsets=move(self.trie_offsets))
+
+
+def beam_search(
+    decode_fn: Callable[[torch.Tensor, int], torch.Tensor],
+    batch_size: int,
+    num_beams: int,
+    max_len: int,
+    vocab_size: int,
+    *,
+    decoder_start: int = 0,
+    pad_token: int = 0,
+    eos_token: Optional[int] = None,
+    constraint: Optional[ConstraintSpec] = None,
+    device="cuda",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run beam search on ``device``.
+
+    ``decode_fn(tokens, step)`` maps the (B*beams, max_len) token buffer and
+    the 0-based step index to next-token logits (B*beams, V) for position
+    ``step + 1``. Returns (tokens (B, beams, max_len) int64, scores
+    (B, beams) f32) sorted by descending score.
+    """
+    constraint = (constraint or ConstraintSpec()).to(device)
+    B, K, V = batch_size, num_beams, vocab_size
+    steps = max_len - 1
+
+    tokens = torch.full((B, K, max_len), pad_token, dtype=torch.int64, device=device)
+    tokens[:, :, 0] = decoder_start
+    scores = torch.full((B, K), _NEG_INF, dtype=torch.float32, device=device)
+    scores[:, 0] = 0.0
+    finished = torch.zeros((B, K), dtype=torch.bool, device=device)
+    prefix = torch.zeros((B, K), dtype=torch.int64, device=device)  # trie walk state
+    frozen_row = torch.full((V,), _NEG_INF, dtype=torch.float32, device=device)
+    frozen_row[pad_token] = 0.0
+    neg = torch.tensor(_NEG_INF, dtype=torch.float32, device=device)
+
+    for step in range(steps):
+        logits = decode_fn(tokens.view(B * K, max_len), step)  # (BK, V)
+        logp = torch.log_softmax(logits.float(), dim=-1).view(B, K, V)
+
+        if constraint.mode == "level":
+            logp = torch.where(constraint.level_masks[step][None, None, :], logp, neg)
+        elif constraint.mode == "trie":
+            rows = constraint.trie_offsets[step] + prefix           # (B, K)
+            logp = torch.where(constraint.trie[rows], logp, neg)    # (B, K, V)
+
+        # frozen beams may only extend with pad at zero cost
+        logp = torch.where(finished[:, :, None], frozen_row, logp)
+
+        cand = (scores[:, :, None] + logp).view(B, K * V)
+        top_scores, top_idx = torch.sort(cand, dim=1, descending=True, stable=True)
+        top_scores, top_idx = top_scores[:, :K], top_idx[:, :K]
+        beam_idx = top_idx // V
+        tok_idx = top_idx % V
+
+        tokens = torch.gather(tokens, 1, beam_idx[:, :, None].expand(B, K, max_len))
+        tokens[:, :, step + 1] = tok_idx
+        finished = torch.gather(finished, 1, beam_idx)
+        prefix = torch.gather(prefix, 1, beam_idx)
+        scores = top_scores
+
+        if eos_token is not None:
+            finished = finished | (tok_idx == eos_token)
+        if constraint.mode == "trie":
+            kc = constraint.codebook_size
+            code = torch.clamp(tok_idx - (step * kc + 1), 0, kc - 1)
+            prefix = prefix * kc + code
+
+    scores, order = torch.sort(scores, dim=1, descending=True, stable=True)
+    tokens = torch.gather(tokens, 1, order[:, :, None].expand(B, K, max_len))
+    return tokens, scores

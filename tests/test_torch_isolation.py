@@ -1,0 +1,81 @@
+"""The port stands alone: no file of ``genrec_tpu_torch`` and not
+``chip_smoke.py`` imports JAX, its libraries or the JAX package; the package
+imports on a machine with no ``nvcc`` and no ``triton``; its entry points run
+on the card unless the caller asks for the CPU, and raise without a card.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from genrec_tpu_torch.serving import model_fn
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "genrec_tpu"}
+
+
+def _port_files():
+    files = sorted((ROOT / "genrec_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    return files
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_no_port_file_imports_jax_or_the_jax_package():
+    offenders = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & BANNED)
+                 for p in _port_files()}
+    assert not {k: v for k, v in offenders.items() if v}
+
+
+def _clean_env():
+    env = dict(os.environ)
+    env.update(PATH=os.path.dirname(sys.executable), CUDA_HOME="/nonexistent",
+               CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(ROOT))
+    env.pop("CUDA_PATH", None)
+    return env
+
+
+def test_package_imports_without_nvcc_triton_or_jax():
+    code = (
+        "import importlib, pkgutil, sys, genrec_tpu_torch\n"
+        "for m in pkgutil.walk_packages(genrec_tpu_torch.__path__, 'genrec_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(BANNED)!r})\n"
+        "assert not bad, bad\n"
+        "assert 'triton' not in sys.modules\n"
+        "print('imported', len([m for m in sys.modules if m.startswith('genrec_tpu_torch')]))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=_clean_env(), cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 15
+
+
+def test_chip_smoke_refuses_without_a_card():
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], env=_clean_env(),
+                         cwd=str(ROOT), capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_entry_point_defaults_to_the_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model_fn.tiger_model_fn(str(tmp_path), str(tmp_path / "codes.npy"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model_fn.resolve_device("cuda:0")
+    assert model_fn.resolve_device("cpu") == torch.device("cpu")
