@@ -9,9 +9,12 @@ reference's. Defaults reproduce the reference configuration
 ``T5ArchConfig.fused_attention`` stays as a field for that comparison, but
 the port does not read it: the port always runs attention without a KV
 cache (encoder self-attention, and the decoder in full-sequence
-``decode``) through the structured-bias fused kernel path
-(``ops/t5_attention.py``). In the deterministic forward the reference's two
-choices ("on" and "off") compute the same function, so nothing is lost.
+``decode``, in training and in eval) through the structured-bias fused
+kernels (``ops/t5_attention.py``), forward and backward, with the
+attention-weight dropout as the kernels' mask input. The reference's "on"
+and "off" compute the same function (its "off" path draws the dropout bits
+inside XLA), so nothing is lost; its "auto" gate was set from TPU
+measurements and is not carried over.
 """
 
 from __future__ import annotations
@@ -32,8 +35,11 @@ class MeshConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
-    """Shared trainer knobs. The port's trainer is not written yet; the
-    fields are kept so TIGERConfig compares with the reference."""
+    """Shared trainer knobs (``train/trainer.py``). The port's single-device
+    trainer does not read ``bucket_interleave_chunks``, ``profile_dir``,
+    ``shard_dataset``, ``composite_mix``, ``param_dtype`` or
+    ``compute_dtype`` yet; they are kept so TIGERConfig compares with the
+    reference."""
 
     batch_size: int = 128
     eval_batch_size: int = 128

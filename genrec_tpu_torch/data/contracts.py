@@ -1,16 +1,26 @@
-"""Semantic-ID code file contract (``course_rqvae_codes.npy``).
+"""File contracts of the port: copies of ``genrec_tpu/data/contracts.py``'s
+code file, interaction and TIGER-split parts.
 
-``course_rqvae_codes.npy`` holds an (N_items + 1, L + 1) int table: row i
-is dense item i (row 0 is padding), L RQ levels plus a collision-
-disambiguation digit (`RQ-VAE/infer.py:149-184`). Written beside it,
-``*_mapping.json`` maps each row index to its code list. The other file
-contracts of the reference come with the slices that read them.
+- ``course_rqvae_codes.npy`` holds an (N_items + 1, L + 1) int table: row i
+  is dense item i (row 0 is padding), L RQ levels plus a collision-
+  disambiguation digit (`RQ-VAE/infer.py:149-184`). Written beside it,
+  ``*_mapping.json`` maps each row index to its code list.
+- ``InteractionData`` is the in-memory form of ``user_item_interact.h5``.
+- ``tiger/{train,test}_dataset.h5``: ``user_id`` int32, ``history`` /
+  ``target`` vlen int32 of flattened offset tokens
+  (`RQVAE-T5/data_vision.py:8-11`). h5py is imported only by the functions
+  that read or write it, so the rest of the port runs without it.
+
+The other file contracts of the reference come with the slices that read
+them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+from typing import List
 
 import numpy as np
 
@@ -30,3 +40,58 @@ def write_codes(path: str, codes: np.ndarray, write_mapping_json: bool = True) -
 
 def read_codes(path: str) -> np.ndarray:
     return np.load(path)
+
+
+@dataclasses.dataclass
+class InteractionData:
+    """In-memory form of user_item_interact.h5."""
+
+    user_ids: np.ndarray            # (U,) int32, 1-based
+    user_profiles: List[str]        # (U,) strings
+    item_id_lists: List[np.ndarray]  # per-user int32 sequences (time ordered)
+
+    @property
+    def num_users(self) -> int:
+        return len(self.user_ids)
+
+    @property
+    def max_item_id(self) -> int:
+        mx = 0
+        for seq in self.item_id_lists:
+            if len(seq):
+                mx = max(mx, int(np.max(seq)))
+        return mx
+
+
+@dataclasses.dataclass
+class TigerSplit:
+    """One split of tiger/{train,test}_dataset.h5 (flattened offset tokens)."""
+
+    user_ids: np.ndarray              # (N,) int32
+    histories: List[np.ndarray]       # per-sample flattened int32 token seqs
+    targets: List[np.ndarray]         # per-sample flattened int32 token seqs
+
+
+def write_tiger_split(path: str, split: TigerSplit) -> None:
+    import h5py
+
+    vlen_int32 = h5py.special_dtype(vlen=np.dtype("int32"))
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with h5py.File(path, "w") as f:
+        f.create_dataset("user_id", data=np.asarray(split.user_ids, dtype=np.int32))
+        h = f.create_dataset("history", (len(split.histories),), dtype=vlen_int32)
+        t = f.create_dataset("target", (len(split.targets),), dtype=vlen_int32)
+        for i, (hist, tgt) in enumerate(zip(split.histories, split.targets)):
+            h[i] = np.asarray(hist, dtype=np.int32)
+            t[i] = np.asarray(tgt, dtype=np.int32)
+
+
+def read_tiger_split(path: str) -> TigerSplit:
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        user_ids = (f["user_id"][:].astype(np.int32) if "user_id" in f
+                    else np.arange(len(f["history"]), dtype=np.int32))
+        histories = [np.asarray(x, dtype=np.int32) for x in f["history"][:]]
+        targets = [np.asarray(x, dtype=np.int32) for x in f["target"][:]]
+    return TigerSplit(user_ids, histories, targets)

@@ -1,0 +1,97 @@
+"""Fixed-shape TIGER arrays and batch iterators: copies of
+``genrec_tpu/data/datasets.py``'s ``TigerArrays``, ``build_tiger_arrays``
+(its numpy path), ``num_batches`` and ``iterate_batches``.
+
+Histories are left-padded with [0]*code_dim to ``max_len`` items
+(`RQVAE-T5/data_vision.py:33-55`), labels padded with -100, attention
+mask = (token != 0). Every batch has a static shape; the last partial
+batch is padded and flagged by a ``valid`` mask.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+
+from genrec_tpu_torch.data.contracts import TigerSplit
+
+Batch = Dict[str, np.ndarray]
+
+
+def iterate_batches(arrays: Batch, batch_size: int, *, shuffle: bool,
+                    seed: int = 0, drop_last: bool = False) -> Iterator[Batch]:
+    """Yield fixed-shape batches; the final partial batch is zero-padded and
+    flagged via a ``valid`` bool mask."""
+    n = len(next(iter(arrays.values())))
+    idx = np.arange(n)
+    if shuffle:
+        np.random.default_rng(seed).shuffle(idx)
+    for start in range(0, n, batch_size):
+        sel = idx[start:start + batch_size]
+        pad = batch_size - len(sel)
+        if pad > 0 and drop_last:
+            break
+        valid = np.ones(batch_size, dtype=bool)
+        if pad > 0:
+            valid[len(sel):] = False
+            sel = np.concatenate([sel, np.zeros(pad, dtype=sel.dtype)])
+        batch = {k: v[sel] for k, v in arrays.items()}
+        batch["valid"] = valid
+        yield batch
+
+
+def num_batches(n: int, batch_size: int, drop_last: bool = False) -> int:
+    return n // batch_size if drop_last else -(-n // batch_size)
+
+
+@dataclasses.dataclass
+class TigerArrays:
+    """Materialized fixed-shape TIGER split.
+
+    ``input_ids`` (N, max_len*code_dim), ``attention_mask`` likewise,
+    ``labels`` (N, max_target_len) with -100 padding, ``user_ids`` (N,).
+    """
+
+    input_ids: np.ndarray
+    attention_mask: np.ndarray
+    labels: np.ndarray
+    user_ids: np.ndarray
+
+    @property
+    def arrays(self) -> Batch:
+        return {"input_ids": self.input_ids, "attention_mask": self.attention_mask,
+                "labels": self.labels, "user_ids": self.user_ids}
+
+
+def build_tiger_arrays(split: TigerSplit, max_len: int, code_dim: int = 4,
+                       pad_token: int = 0,
+                       max_target_items: Optional[int] = None) -> TigerArrays:
+    """Pad/truncate histories to ``max_len`` items (left pad, keep the most
+    recent), flatten to tokens; pad flat targets with -100 to a fixed width.
+
+    ``max_target_items`` defaults to the longest target in the split (the
+    teacher-forcing train width); eval splits pass 1.
+    """
+    seq_tokens = max_len * code_dim
+    n = len(split.histories)
+    if max_target_items is None:
+        longest = max((len(t) for t in split.targets), default=code_dim) // code_dim
+        max_target_items = max(1, longest)
+    tgt_tokens = max_target_items * code_dim
+
+    input_ids = np.zeros((n, seq_tokens), dtype=np.int32)
+    labels = np.full((n, tgt_tokens), -100, dtype=np.int32)
+    for i, (hist, tgt) in enumerate(zip(split.histories, split.targets)):
+        hist = np.asarray(hist, dtype=np.int32)
+        n_items = len(hist) // code_dim
+        if n_items > max_len:  # truncate: keep most recent
+            hist = hist[-seq_tokens:]
+            n_items = max_len
+        input_ids[i, seq_tokens - n_items * code_dim:] = hist
+        tgt = np.asarray(tgt, dtype=np.int32)[:tgt_tokens]
+        labels[i, :len(tgt)] = tgt
+    attention_mask = (input_ids != pad_token).astype(np.int32)
+    return TigerArrays(input_ids, attention_mask, labels,
+                       np.asarray(split.user_ids, dtype=np.int32))

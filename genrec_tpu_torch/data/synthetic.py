@@ -1,8 +1,78 @@
-"""Synthetic semantic-ID tables for the smoke run and the tests."""
+"""Synthetic corpora and semantic-ID tables for the smoke run and the tests:
+copies of ``genrec_tpu/data/synthetic.py``'s ``make_interactions`` and
+``make_codes``, which give the same arrays from the same seed.
+
+Sequences follow a power-law item popularity with per-user Markov topic
+drift, which is enough structure for a retriever to beat random.
+"""
 
 from __future__ import annotations
 
 import numpy as np
+
+from genrec_tpu_torch.data.contracts import InteractionData
+
+
+def make_interactions(
+    num_users: int = 2000,
+    num_items: int = 700,
+    min_len: int = 3,
+    max_len: int = 40,
+    num_topics: int = 16,
+    topic_stickiness: float = 0.85,
+    seed: int = 0,
+) -> InteractionData:
+    """Synthetic user→item interaction sequences (user_item_interact.h5).
+
+    Items 1..num_items are assigned to topics; each user walks a sticky
+    Markov chain over topics and samples Zipf-weighted items inside the
+    current topic. user_ids are 1-based contiguous.
+    """
+    rng = np.random.default_rng(seed)
+    item_topic = rng.integers(0, num_topics, size=num_items + 1)
+    # Zipf-ish popularity inside each topic.
+    pop = 1.0 / np.arange(1, num_items + 1) ** 0.8
+    pop = pop[rng.permutation(num_items)]
+
+    topic_items = [np.where(item_topic[1:] == t)[0] + 1 for t in range(num_topics)]
+    topic_probs = []
+    for t in range(num_topics):
+        ids = topic_items[t]
+        if len(ids) == 0:
+            ids = np.arange(1, num_items + 1)
+        w = pop[ids - 1]
+        topic_probs.append(w / w.sum())
+        topic_items[t] = ids
+
+    user_ids = np.arange(1, num_users + 1, dtype=np.int32)
+    profiles = [f"user_{u}" for u in user_ids]
+
+    # vectorized over users: walk topics step-by-step, then inverse-CDF
+    # sample an item within each user's current topic.
+    lens = rng.integers(min_len, max_len + 1, size=num_users)
+    # pad ragged per-topic tables to a rectangle for fancy indexing
+    width = max(len(t) for t in topic_items)
+    items_rect = np.zeros((num_topics, width), dtype=np.int64)
+    cum_rect = np.ones((num_topics, width), dtype=np.float64)
+    for t in range(num_topics):
+        k = len(topic_items[t])
+        items_rect[t, :k] = topic_items[t]
+        cum_rect[t, :k] = np.cumsum(topic_probs[t])
+        items_rect[t, k:] = topic_items[t][-1]
+
+    topic = rng.integers(0, num_topics, size=num_users)
+    all_steps = np.zeros((num_users, max_len), dtype=np.int32)
+    for i in range(max_len):
+        switch = rng.random(num_users) > topic_stickiness
+        topic = np.where(switch, rng.integers(0, num_topics, size=num_users), topic)
+        u = rng.random(num_users)
+        col = np.array([np.searchsorted(cum_rect[t], x)
+                        for t, x in zip(topic, u)]) if num_users < 512 else \
+            (u[:, None] > cum_rect[topic]).sum(axis=1)
+        col = np.minimum(col, width - 1)
+        all_steps[:, i] = items_rect[topic, col]
+    seqs = [all_steps[j, :lens[j]].astype(np.int32) for j in range(num_users)]
+    return InteractionData(user_ids, profiles, seqs)
 
 
 def make_codes(num_items: int, codebook_size: int = 8, num_levels: int = 3,

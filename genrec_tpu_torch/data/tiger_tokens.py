@@ -1,17 +1,23 @@
-"""TIGER semantic-ID token space and decode-constraint tables.
+"""TIGER semantic-ID token space, leave-one-out splits and decode-constraint
+tables.
 
 Token mapping: ``token = raw_code + level*codebook_size + 1``, giving
 level-disjoint ranges [1-8], [9-16], [17-24], [25-32] for K=8, with pad=0
 outside all ranges and eos=31 overlapping the level-3 range (a wart of the
-reference, kept for parity). Host-side numpy; the tables are moved to the
-device by the beam search.
+reference, kept for parity). Leave-one-out split with teacher forcing
+(`RQVAE-T5/data_read.ipynb`): for a user item sequence s_1..s_n (n ≥ 2),
+test = (s_1..s_{n-1} → s_n) and train = (s_1..s_{n-2} → s_2..s_{n-1});
+users with exactly 2 items are train-only. Host-side numpy; the tables are
+moved to the device by the beam search.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
+
+from genrec_tpu_torch.data.contracts import TigerSplit
 
 
 def codes_to_token_table(codes: np.ndarray, codebook_size: int = 8) -> np.ndarray:
@@ -19,6 +25,62 @@ def codes_to_token_table(codes: np.ndarray, codebook_size: int = 8) -> np.ndarra
     codes = np.asarray(codes, dtype=np.int64)
     levels = np.arange(codes.shape[1], dtype=np.int64)[None, :]
     return (codes + levels * codebook_size + 1).astype(np.int32)
+
+
+def build_tiger_splits(
+    item_id_lists: Sequence[np.ndarray],
+    user_ids: Sequence[int],
+    codes: np.ndarray,
+    codebook_size: int = 8,
+    min_seq_len: int = 2,
+    vocab_size: int = 64,
+) -> Tuple[TigerSplit, TigerSplit]:
+    """Build tiger/{train,test} splits from raw interactions + item codes.
+
+    ``codes`` is the (max_item_id+1, code_dim) table indexed by dense item id
+    (row 0 unused / padding). Histories/targets are stored flattened in the
+    offset-token space, matching the vlen-int32 H5 contract.
+    """
+    token_table = codes_to_token_table(codes, codebook_size)
+    # dedup digits are unbounded (RQ-VAE/infer.py:150-171); tokens must still
+    # fit the model vocabulary: fail loudly instead of wrapping in the lookup
+    max_tok = int(token_table.max()) if token_table.size else 0
+    if max_tok >= vocab_size:
+        raise ValueError(
+            f"offset token {max_tok} ≥ vocab {vocab_size} — a collision group has "
+            f"more duplicates than the token space can disambiguate; "
+            f"retrain RQ-VAE for a lower collision rate or grow the vocab")
+
+    train_uids: List[int] = []
+    train_hist: List[np.ndarray] = []
+    train_tgt: List[np.ndarray] = []
+    test_uids: List[int] = []
+    test_hist: List[np.ndarray] = []
+    test_tgt: List[np.ndarray] = []
+
+    for uid, items in zip(user_ids, item_id_lists):
+        items = np.asarray(items, dtype=np.int64)
+        n = len(items)
+        if n < min_seq_len:
+            continue
+        tok = token_table[items]  # (n, code_dim)
+        if n >= 3:
+            # test: full history minus last → last item
+            test_uids.append(int(uid))
+            test_hist.append(tok[:-1].reshape(-1))
+            test_tgt.append(tok[-1].reshape(-1))
+            # train: teacher forcing over the remaining prefix
+            train_uids.append(int(uid))
+            train_hist.append(tok[:-2].reshape(-1))
+            train_tgt.append(tok[1:-1].reshape(-1))
+        else:  # n == 2: train-only (notebook behavior)
+            train_uids.append(int(uid))
+            train_hist.append(tok[:1].reshape(-1))
+            train_tgt.append(tok[1:2].reshape(-1))
+
+    train = TigerSplit(np.asarray(train_uids, dtype=np.int32), train_hist, train_tgt)
+    test = TigerSplit(np.asarray(test_uids, dtype=np.int32), test_hist, test_tgt)
+    return train, test
 
 
 def level_token_ranges(codebook_size: int, code_dim: int) -> List[Tuple[int, int]]:

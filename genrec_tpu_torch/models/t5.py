@@ -1,4 +1,4 @@
-"""Scratch T5 encoder-decoder in PyTorch, deterministic forward.
+"""Scratch T5 encoder-decoder in PyTorch, with training-mode dropout.
 
 Counterpart of ``genrec_tpu/models/t5.py`` with the same numerics: RMS
 layer norm (no bias or mean), relative-position bucket biases (one table
@@ -19,8 +19,16 @@ Attention takes one of two paths:
   √d_kv to cancel its 1/√d, and cross-attention with the beams folded into
   the query axis (``T5Attention._cross_attend_beams``).
 
-Dropout and the training backward come with the training slice; this
-module computes the deterministic forward only.
+Dropout (rate ``cfg.dropout_rate``) is on in training mode (``.train()``)
+at the reference's Flax places: the stack's input and output, every
+sublayer's output, the feed-forward hidden layer, and the attention weights
+(through the fused kernel's multiplicative mask). Its masks are drawn from a
+``torch.Generator`` that the caller passes to ``forward`` / ``encode`` /
+``decode``; there is no global RNG, and training-mode dropout without a
+generator raises. In ``.eval()`` (or at rate 0) no dropout operation runs.
+Gradients reach every parameter; the attention's backward is the fused
+kernel's (``ops/t5_attention.py``). The KV-cache path (``decode_step``) is
+for generation in eval mode only.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ from torch.nn import functional as F
 
 from genrec_tpu_torch.configs import T5ArchConfig
 from genrec_tpu_torch.ops.attention import dot_product_attention
-from genrec_tpu_torch.ops.t5_attention import fused_t5_attention_flat
+from genrec_tpu_torch.ops.t5_attention import fused_t5_attention_flat, make_dropout_mask
 
 _NEG_INF = -1e9
 
@@ -50,6 +58,25 @@ class AttnSpec:
 
     pos_bias: Optional[torch.Tensor]
     kv_mask: Optional[torch.Tensor]
+
+
+def _drop_rate(module: nn.Module, generator: Optional[torch.Generator]) -> float:
+    """The dropout rate in force for ``module``: ``cfg.dropout_rate`` in
+    training mode, else 0. Training-mode dropout needs ``generator``."""
+    rate = module.cfg.dropout_rate if module.training else 0.0
+    if rate > 0.0 and generator is None:
+        raise ValueError("training-mode dropout draws its masks from a torch.Generator: "
+                         "pass generator=..., or call .eval()")
+    return rate
+
+
+def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
+    """Flax ``nn.Dropout``: keep each element with probability 1 − rate and
+    divide the kept ones by 1 − rate; the identity at rate 0."""
+    if rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 def _normal_(t: torch.Tensor, std: float, generator: Optional[torch.Generator]):
@@ -168,7 +195,7 @@ class T5Attention(nn.Module):
                 .transpose(1, 2).reshape(bm, h, s, dkv))
 
     def forward(self, x, kv, bias, *, kv_cache: Optional[KV] = None,
-                kv_beams: Optional[int] = None):
+                kv_beams: Optional[int] = None, generator: Optional[torch.Generator] = None):
         c = self.cfg
         h, dkv = c.num_heads, c.d_kv
         inner = h * dkv
@@ -183,9 +210,12 @@ class T5Attention(nn.Module):
                 return (t.view(b, ll, h, dkv).permute(2, 0, 1, 3)
                         .reshape(h * b, ll, dkv).contiguous())
 
+            rate = _drop_rate(self, generator)
+            dmask = (make_dropout_mask(generator, h * b, lq, lk, rate, x.device)
+                     if rate > 0.0 else None)
             of = fused_t5_attention_flat(flat(self.q(x), lq), flat(self.k(kv), lk),
                                          flat(self.v(kv), lk), h, bias.pos_bias,
-                                         bias.kv_mask)
+                                         bias.kv_mask, dropout_rate=rate, dropout_mask=dmask)
             out = of.view(h, b, lq, dkv).permute(1, 2, 0, 3).reshape(b, lq, inner)
             return self.o(out)
         qh = self._split_heads(self.q(x))
@@ -212,18 +242,19 @@ class T5FeedForward(nn.Module):
         _normal_(self.wi.weight, self.cfg.d_model ** -0.5, generator)
         _normal_(self.wo.weight, self.cfg.d_ff ** -0.5, generator)
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         h = self.wi(x)
         if self.cfg.feed_forward_proj == "relu":
             h = F.relu(h)
         else:  # flax nn.gelu is the tanh approximation
             h = F.gelu(h, approximate="tanh")
-        return self.wo(h)
+        return self.wo(_dropout(h, _drop_rate(self, generator), generator))
 
 
 class T5Block(nn.Module):
     def __init__(self, cfg: T5ArchConfig, is_decoder: bool):
         super().__init__()
+        self.cfg = cfg
         self.is_decoder = is_decoder
         eps = cfg.layer_norm_epsilon
         self.self_norm = RMSNorm(cfg.d_model, eps)
@@ -235,15 +266,18 @@ class T5Block(nn.Module):
         self.ff = T5FeedForward(cfg)
 
     def forward(self, x, self_bias, enc_out=None, cross_mask=None,
-                cross_kv: Optional[KV] = None, cross_kv_beams: Optional[int] = None):
+                cross_kv: Optional[KV] = None, cross_kv_beams: Optional[int] = None,
+                generator: Optional[torch.Generator] = None):
+        rate = _drop_rate(self, generator)
         h = self.self_norm(x)
-        x = x + self.self_attn(h, h, self_bias)
+        x = x + _dropout(self.self_attn(h, h, self_bias, generator=generator), rate, generator)
         if self.is_decoder and (enc_out is not None or cross_kv is not None):
             h = self.cross_norm(x)
-            x = x + self.cross_attn(h, enc_out, cross_mask, kv_cache=cross_kv,
-                                    kv_beams=cross_kv_beams)
+            x = x + _dropout(self.cross_attn(h, enc_out, cross_mask, kv_cache=cross_kv,
+                                             kv_beams=cross_kv_beams, generator=generator),
+                             rate, generator)
         h = self.ff_norm(x)
-        return x + self.ff(h)
+        return x + _dropout(self.ff(h, generator), rate, generator)
 
 
 def _extend_mask(attention_mask: torch.Tensor) -> torch.Tensor:
@@ -260,6 +294,7 @@ def _causal_bias(length: int, device) -> torch.Tensor:
 class T5Stack(nn.Module):
     def __init__(self, cfg: T5ArchConfig, num_layers: int, is_decoder: bool):
         super().__init__()
+        self.cfg = cfg
         self.is_decoder = is_decoder
         self.rel_bias = RelativePositionBias(cfg, bidirectional=not is_decoder)
         self.blocks = nn.ModuleList(T5Block(cfg, is_decoder) for _ in range(num_layers))
@@ -267,7 +302,9 @@ class T5Stack(nn.Module):
 
     def forward(self, inputs_embeds, attention_mask=None, enc_out=None, enc_mask=None,
                 *, cross_kvs: Optional[Sequence[KV]] = None,
-                cross_kv_beams: Optional[int] = None):
+                cross_kv_beams: Optional[int] = None,
+                generator: Optional[torch.Generator] = None):
+        rate = _drop_rate(self, generator)
         lq = inputs_embeds.shape[1]
         dev = inputs_embeds.device
         if cross_kvs is None:
@@ -284,11 +321,11 @@ class T5Stack(nn.Module):
             if attention_mask is not None:
                 self_bias = self_bias + _extend_mask(attention_mask)
             cross_mask = _extend_mask(enc_mask) if enc_mask is not None else None
-        x = inputs_embeds
+        x = _dropout(inputs_embeds, rate, generator)
         for i, block in enumerate(self.blocks):
             x = block(x, self_bias, enc_out, cross_mask,
-                      None if cross_kvs is None else cross_kvs[i], cross_kv_beams)
-        return self.final_norm(x)
+                      None if cross_kvs is None else cross_kvs[i], cross_kv_beams, generator)
+        return _dropout(self.final_norm(x), rate, generator)
 
     def precompute_cross_kv(self, enc_out) -> Tuple[KV, ...]:
         """Per-layer cross-attention K/V of a fixed encoder output (decoder
@@ -338,14 +375,16 @@ class T5EncoderDecoder(nn.Module):
             elif isinstance(m, RMSNorm):
                 nn.init.ones_(m.weight)
 
-    def encode(self, input_ids=None, attention_mask=None, inputs_embeds=None):
+    def encode(self, input_ids=None, attention_mask=None, inputs_embeds=None,
+               generator: Optional[torch.Generator] = None):
         if inputs_embeds is None:
             inputs_embeds = self.shared(input_ids)
-        return self.encoder(inputs_embeds, attention_mask)
+        return self.encoder(inputs_embeds, attention_mask, generator=generator)
 
-    def decode(self, decoder_input_ids, enc_out, enc_mask=None):
+    def decode(self, decoder_input_ids, enc_out, enc_mask=None,
+               generator: Optional[torch.Generator] = None):
         x = self.shared(decoder_input_ids)
-        x = self.decoder(x, None, enc_out, enc_mask)
+        x = self.decoder(x, None, enc_out, enc_mask, generator=generator)
         return self.lm_logits(x)
 
     def precompute_cross_kv(self, enc_out) -> Tuple[KV, ...]:
@@ -367,10 +406,12 @@ class T5EncoderDecoder(nn.Module):
         hidden = hidden * (self.cfg.d_model ** -0.5)
         return torch.matmul(hidden.float(), self.shared.weight.float().t())
 
-    def forward(self, input_ids=None, attention_mask=None, labels=None, inputs_embeds=None):
-        """(loss, logits) like `RQVAE-T5/model.py:42-60`, deterministic."""
+    def forward(self, input_ids=None, attention_mask=None, labels=None, inputs_embeds=None,
+                generator: Optional[torch.Generator] = None):
+        """(loss, logits) like `RQVAE-T5/model.py:42-60`; dropout in training
+        mode, drawn from ``generator``."""
         c = self.cfg
-        enc_out = self.encode(input_ids, attention_mask, inputs_embeds)
+        enc_out = self.encode(input_ids, attention_mask, inputs_embeds, generator)
         decoder_input_ids = shift_right(labels, c.decoder_start_token_id, c.pad_token_id)
-        logits = self.decode(decoder_input_ids, enc_out, attention_mask)
+        logits = self.decode(decoder_input_ids, enc_out, attention_mask, generator)
         return cross_entropy_with_ignore(logits, labels), logits

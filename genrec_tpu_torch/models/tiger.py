@@ -4,7 +4,8 @@ Counterpart of ``genrec_tpu/models/tiger.py``: a scratch-config T5
 encoder-decoder over the 64-token offset-code vocabulary, with beam-search
 generation returning ``num_beams`` sequences per sample (``max_gen_len``
 tokens including the decoder start) under an optional level or trie
-constraint (``ops/beam_search.py``).
+constraint (``ops/beam_search.py``). The forward returns (loss, logits) and
+trains with dropout in training mode; generation wants ``.eval()``.
 """
 
 from __future__ import annotations
@@ -30,9 +31,12 @@ class TIGER(nn.Module):
         self.cfg = cfg
         self.model = T5EncoderDecoder(cfg.arch, generator)
 
-    def forward(self, input_ids, attention_mask=None, labels=None):
-        """(loss, logits) like `RQVAE-T5/model.py:42-60`, deterministic."""
-        return self.model(input_ids, attention_mask, labels)
+    def forward(self, input_ids, attention_mask=None, labels=None,
+                generator: Optional[torch.Generator] = None):
+        """(loss, logits) like `RQVAE-T5/model.py:42-60`. In training mode
+        (``.train()``) with ``arch.dropout_rate > 0`` dropout is on, its masks
+        drawn from ``generator``; in ``.eval()`` the forward is deterministic."""
+        return self.model(input_ids, attention_mask, labels, generator=generator)
 
     def encode(self, input_ids, attention_mask=None):
         return self.model.encode(input_ids, attention_mask)

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``genrec_tpu_torch/_build/`` (listed in ``.gitignore``), named after a
 hash of the source so a changed source is never served a stale library,
-and loaded with ``ctypes``. Nothing here runs when a module is imported:
+and loaded with ``ctypes``. ``build_all`` starts one ``nvcc`` per source,
+all together. Nothing here runs when a module is imported:
 the CPU tests import every module on a machine with no ``nvcc``.
 
 A failed build raises; there is no fallback.
@@ -19,7 +20,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -50,28 +51,44 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its library exists; return its path."""
-    out = library_path(name)
-    if os.path.exists(out):
+def build_all(names: Sequence[str]) -> Dict[str, str]:
+    """Compile each ``csrc/<name>.cu`` whose library does not exist, one
+    ``nvcc`` per source, all started together; return each library's path."""
+    out = {name: library_path(name) for name in names}
+    todo = [name for name in names if not os.path.exists(out[name])]
+    if not todo:
         return out
     nvcc = _nvcc()  # before any file is made: no compiler, nothing to clean up
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
-    t0 = time.perf_counter()
+    jobs = {}
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name} (rc {proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)  # atomic: a reader never sees a half-written library
+        for name in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+            jobs[name] = (proc, tmp, cmd, time.perf_counter())
+        for name, (proc, tmp, cmd, t0) in jobs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name} (rc {proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{log}")
+            os.replace(tmp, out[name])  # atomic: a reader never sees a half-written library
+            build_log[name] = (time.perf_counter() - t0, log)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    build_log[name] = (time.perf_counter() - t0, proc.stdout + proc.stderr)
+        for proc, tmp, _, _ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
     return out
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless its library exists; return its path."""
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,21 +1,26 @@
-"""Fused short-sequence T5 attention forward: CUDA kernel and plain version.
+"""Fused short-sequence T5 attention, forward and backward: CUDA kernels
+and plain versions.
 
-Counterpart of ``genrec_tpu/ops/t5_attention.py``'s forward
-(``fused_t5_attention_flat`` / ``fused_t5_attention``), with the same
-layouts: the flat entry takes q/k/v as (H·B, L, D) with the head dimension
-slowest, ``pos_bias`` (H, Lq, Lk) is a learned additive bias, ``kv_mask``
-(B, Lk) is 1 where a key may be attended, ``dropout_mask`` (H·B, Lq, Lk)
-is a multiplicative mask applied to the softmax probabilities. Unscaled
-dot product (T5 convention); every mask is an ADDITIVE −1e9 term in f32.
+Counterpart of ``genrec_tpu/ops/t5_attention.py`` (``fused_t5_attention_flat``
+/ ``fused_t5_attention`` and their custom VJP), with the same layouts: the
+flat entry takes q/k/v as (H·B, L, D) with the head dimension slowest,
+``pos_bias`` (H, Lq, Lk) is a learned additive bias, ``kv_mask`` (B, Lk) is 1
+where a key may be attended, ``dropout_mask`` (H·B, Lq, Lk) is a
+multiplicative mask applied to the softmax probabilities. Unscaled dot
+product (T5 convention); every mask is an ADDITIVE −1e9 term in f32.
 
-Dispatch, decided by where the tensors lie and nothing else:
-- CUDA tensors go to the hand-written kernel ``csrc/t5_attention_fwd.cu``
-  (built at first use, ``ops/_build.py``) or raise; nothing falls back;
-- CPU tensors go to the plain version :func:`t5_attention_reference`.
+The entry points are a ``torch.autograd.Function``: gradients flow to q, k,
+v and ``pos_bias`` (never to the masks). Dispatch, decided by where the
+tensors lie and nothing else:
+- CUDA tensors go to the hand-written kernels ``csrc/t5_attention_fwd.cu``
+  and ``csrc/t5_attention_bwd.cu`` (built at first use, ``ops/_build.py``)
+  or raise; nothing falls back;
+- CPU tensors go to the plain versions :func:`t5_attention_reference` and
+  :func:`t5_attention_bwd_reference`.
 
-Forward only, f32 only, for now: the backward kernel comes with the
-training slice, bf16 later. ``launches`` counts kernel launches, so a run
-can show that its main path went through the kernel.
+f32 only, for now (bf16 later). ``launches`` and ``bwd_launches`` count
+kernel launches, so a run can show that its main path went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -30,14 +35,17 @@ from genrec_tpu_torch.ops import _build
 _NEG_INF = -1e9
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on H100
 _KERNEL = "t5_attention_fwd"
+_BWD_KERNEL = "t5_attention_bwd"
 
-launches = 0  # kernel launches since import (or since a caller reset it)
+launches = 0      # forward kernel launches since import (or since a caller reset it)
+bwd_launches = 0  # backward kernel launches, likewise
 
 _lib = None
+_bwd_lib = None
 
 
 def load_kernel():
-    """Build (at first use) and bind the kernel's library."""
+    """Build (at first use) and bind the forward kernel's library."""
     global _lib
     if _lib is None:
         lib = _build.load(_KERNEL)
@@ -52,33 +60,95 @@ def load_kernel():
     return _lib
 
 
-def t5_attention_reference(qf, kf, vf, h: int, pos_bias=None, kv_mask=None, *,
-                           causal: bool = False, dropout_mask=None):
-    """Plain PyTorch version of the kernel, in the flat (H·B, L, D) layout:
-    the same terms added in the same order as the kernel and the Pallas
-    reference (q·kᵀ, + bias, + causal, + key mask), f32 softmax with the
-    sum clamped at 1e-30, then the multiplicative dropout mask, then ·V."""
+def load_bwd_kernel():
+    """Build (at first use) and bind the backward kernel's library."""
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = _build.load(_BWD_KERNEL)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.t5_attention_bwd.argtypes = [p] * 11 + [i] * 6 + [p]
+        lib.t5_attention_bwd.restype = ctypes.c_int
+        lib.t5_attention_bwd_smem_bytes.argtypes = [i, i, i]
+        lib.t5_attention_bwd_smem_bytes.restype = ctypes.c_size_t
+        lib.t5_attention_bwd_error_string.argtypes = [i]
+        lib.t5_attention_bwd_error_string.restype = ctypes.c_char_p
+        _bwd_lib = lib
+    return _bwd_lib
+
+
+def make_dropout_mask(generator: torch.Generator, hb: int, lq: int, lk: int, rate: float,
+                      device=None) -> torch.Tensor:
+    """Multiplicative inverted-dropout mask for the flat (H·B, Lq, Lk) layout:
+    f32 values in {0, 1/(1−rate)}, each kept with probability 1 − rate, drawn
+    from ``generator`` (on ``device``) and no global RNG. The scale is the f32
+    1/keep that the reference's XLA dropout path divides by; the reference's
+    own ``make_dropout_mask`` rounds it to bf16 (1.109375 at rate 0.1)."""
+    keep = torch.rand((hb, lq, lk), generator=generator, device=device) >= rate
+    return torch.where(keep, 1.0 / (1.0 - rate), 0.0).to(torch.float32)
+
+
+def _acc(t):
+    """The plain versions' working type: f32, or f64 for f64 inputs (gradcheck)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _probs(qf, kf, h: int, pos_bias, kv_mask, causal: bool):
+    """Softmax probabilities (H·B, Lq, Lk): the terms added in the kernels'
+    order (q·kᵀ, + bias, + causal, + key mask), the sum clamped at 1e-30."""
     hb, lq, _ = qf.shape
     lk = kf.shape[1]
     b = hb // h
-    s = torch.bmm(qf.float(), kf.float().transpose(1, 2)).view(h, b, lq, lk)
+    s = torch.bmm(_acc(qf), _acc(kf).transpose(1, 2)).view(h, b, lq, lk)
     if pos_bias is not None:
-        s = s + pos_bias.float()[:, None]
+        s = s + _acc(pos_bias)[:, None]
     if causal:
         row = torch.arange(lq, device=qf.device)[:, None]
         col = torch.arange(lk, device=qf.device)[None, :]
         s = s + torch.where(col > row + (lk - lq), _NEG_INF, 0.0).to(s.dtype)
     if kv_mask is not None:
-        s = s + ((1.0 - kv_mask.float()) * _NEG_INF)[None, :, None, :]
+        s = s + ((1.0 - kv_mask.to(s.dtype)) * _NEG_INF)[None, :, None, :]
     s = s.reshape(hb, lq, lk)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    return p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+
+
+def t5_attention_reference(qf, kf, vf, h: int, pos_bias=None, kv_mask=None, *,
+                           causal: bool = False, dropout_mask=None):
+    """Plain PyTorch version of the forward kernel, in the flat (H·B, L, D)
+    layout: the probabilities of :func:`_probs`, then the multiplicative
+    dropout mask, then ·V."""
+    p = _probs(qf, kf, h, pos_bias, kv_mask, causal)
     if dropout_mask is not None:
-        p = p * dropout_mask.float()
+        p = p * _acc(dropout_mask)
     return torch.bmm(p.to(vf.dtype), vf).to(qf.dtype)
 
 
-def _check(qf, kf, vf, h, pos_bias, kv_mask, dmask):
+def t5_attention_bwd_reference(qf, kf, vf, h: int, pos_bias, kv_mask, do, *,
+                               causal: bool = False, dropout_mask=None,
+                               need_dbias: bool = True):
+    """Plain PyTorch version of the backward kernel (the reference's
+    ``_bwd_kernel``): recompute p, then dp = (do·vᵀ)·dm,
+    ds = p·(dp − rowsum(dp·p)), dq = ds·k, dk = dsᵀ·q, dv = (p·dm)ᵀ·do and
+    dbias = Σ_b ds (None unless ``pos_bias`` is given and ``need_dbias``)."""
+    hb, lq, _ = qf.shape
+    lk = kf.shape[1]
+    p = _probs(qf, kf, h, pos_bias, kv_mask, causal)
+    dp = torch.bmm(_acc(do), _acc(vf).transpose(1, 2))
+    pd = p
+    if dropout_mask is not None:
+        dm = _acc(dropout_mask)
+        dp, pd = dp * dm, p * dm
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.bmm(ds, _acc(kf))
+    dk = torch.bmm(ds.transpose(1, 2), _acc(qf))
+    dv = torch.bmm(pd.transpose(1, 2), _acc(do))
+    dbias = None
+    if pos_bias is not None and need_dbias:
+        dbias = ds.view(h, hb // h, lq, lk).sum(dim=1)
+    return dq, dk, dv, dbias
+
+
+def _check(qf, kf, vf, h, pos_bias, kv_mask, dmask, do=None):
     for name, t in (("qf", qf), ("kf", kf), ("vf", vf)):
         if t.dim() != 3:
             raise ValueError(f"{name} must be (H*B, L, D), got {tuple(t.shape)}")
@@ -109,11 +179,23 @@ def _check(qf, kf, vf, h, pos_bias, kv_mask, dmask):
                              f"{tuple(dmask.shape)}")
         if dmask.dtype != torch.float32:
             raise TypeError(f"dropout_mask must be float32, got {dmask.dtype}")
-    given = [t for t in (qf, kf, vf, pos_bias, kv_mask, dmask) if t is not None]
+    if do is not None:
+        if tuple(do.shape) != (hb, lq, d):
+            raise ValueError(f"the output gradient must be ({hb}, {lq}, {d}), got "
+                             f"{tuple(do.shape)}")
+        if do.dtype != torch.float32:
+            raise TypeError(f"the output gradient must be float32, got {do.dtype}")
+    given = [t for t in (qf, kf, vf, pos_bias, kv_mask, dmask, do) if t is not None]
     if len({t.device for t in given}) != 1:
         raise ValueError(f"all tensors must lie on one device, got {[t.device for t in given]}")
     if not all(t.is_contiguous() for t in given):
-        raise ValueError("t5_attention_fwd takes contiguous tensors only")
+        raise ValueError("t5_attention takes contiguous tensors only")
+    if qf.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"t5_attention runs on CUDA or CPU tensors, not {qf.device}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _launch(qf, kf, vf, h, pos_bias, kv_mask, dmask, causal):
@@ -127,12 +209,11 @@ def _launch(qf, kf, vf, h, pos_bias, kv_mask, dmask, causal):
                          f"shared memory per block, above the card's {_MAX_SMEM}")
     out = torch.empty_like(qf)
     mask32 = None if kv_mask is None else kv_mask.to(torch.int32).contiguous()
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(qf.device):
         stream = torch.cuda.current_stream(qf.device).cuda_stream
         err = lib.t5_attention_fwd(
-            ptr(qf), ptr(kf), ptr(vf), ptr(pos_bias), ptr(mask32), ptr(dmask),
-            ptr(out), hb, hb // h, lq, lk, d, int(causal), stream)
+            _ptr(qf), _ptr(kf), _ptr(vf), _ptr(pos_bias), _ptr(mask32), _ptr(dmask),
+            _ptr(out), hb, hb // h, lq, lk, d, int(causal), stream)
     if err != 0:
         msg = lib.t5_attention_fwd_error_string(err).decode()
         raise RuntimeError(f"t5_attention_fwd launch failed: {msg} ({err})")
@@ -140,22 +221,89 @@ def _launch(qf, kf, vf, h, pos_bias, kv_mask, dmask, causal):
     return out
 
 
+def _launch_bwd(qf, kf, vf, h, pos_bias, kv_mask, dmask, do, causal, need_dbias):
+    global bwd_launches
+    hb, lq, d = qf.shape
+    lk = kf.shape[1]
+    lib = load_bwd_kernel()
+    smem = lib.t5_attention_bwd_smem_bytes(lq, lk, d)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"t5_attention_bwd: Lq={lq}, Lk={lk}, D={d} needs {smem} bytes of "
+                         f"shared memory per block, above the card's {_MAX_SMEM}")
+    dq, dk, dv = torch.empty_like(qf), torch.empty_like(kf), torch.empty_like(vf)
+    # the kernel atomically adds each batch row's ds into a zeroed buffer
+    dbias = (torch.zeros((h, lq, lk), dtype=torch.float32, device=qf.device)
+             if pos_bias is not None and need_dbias else None)
+    mask32 = None if kv_mask is None else kv_mask.to(torch.int32).contiguous()
+    with torch.cuda.device(qf.device):
+        stream = torch.cuda.current_stream(qf.device).cuda_stream
+        err = lib.t5_attention_bwd(
+            _ptr(qf), _ptr(kf), _ptr(vf), _ptr(pos_bias), _ptr(mask32), _ptr(dmask),
+            _ptr(do), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dbias), hb, hb // h, lq, lk, d,
+            int(causal), stream)
+    if err != 0:
+        msg = lib.t5_attention_bwd_error_string(err).decode()
+        raise RuntimeError(f"t5_attention_bwd launch failed: {msg} ({err})")
+    bwd_launches += 1
+    return dq, dk, dv, dbias
+
+
+def t5_attention_fwd(qf, kf, vf, h: int, pos_bias=None, kv_mask=None, *,
+                     causal: bool = False, dropout_mask=None):
+    """The forward on its own (no autograd): the kernel on CUDA tensors, the
+    plain version on CPU tensors."""
+    _check(qf, kf, vf, h, pos_bias, kv_mask, dropout_mask)
+    if qf.device.type == "cpu":
+        return t5_attention_reference(qf, kf, vf, h, pos_bias, kv_mask, causal=causal,
+                                      dropout_mask=dropout_mask)
+    return _launch(qf, kf, vf, h, pos_bias, kv_mask, dropout_mask, causal)
+
+
+def t5_attention_bwd(qf, kf, vf, h: int, pos_bias, kv_mask, do, *, causal: bool = False,
+                     dropout_mask=None, need_dbias: bool = True):
+    """The backward on its own: (dq, dk, dv, dbias) from the output gradient
+    ``do`` (H·B, Lq, D), the kernel on CUDA tensors, the plain version on CPU
+    tensors. dbias is None unless ``pos_bias`` is given and ``need_dbias``."""
+    _check(qf, kf, vf, h, pos_bias, kv_mask, dropout_mask, do)
+    if qf.device.type == "cpu":
+        return t5_attention_bwd_reference(qf, kf, vf, h, pos_bias, kv_mask, do, causal=causal,
+                                          dropout_mask=dropout_mask, need_dbias=need_dbias)
+    return _launch_bwd(qf, kf, vf, h, pos_bias, kv_mask, dropout_mask, do, causal, need_dbias)
+
+
+class _FusedT5Attention(torch.autograd.Function):
+    """Forward kernel #1 and backward kernel #2 (the reference's custom VJP
+    ``_fused``); the masks and the non-tensor arguments get no gradient."""
+
+    @staticmethod
+    def forward(ctx, qf, kf, vf, pos_bias, kv_mask, dmask, h, causal):
+        out = t5_attention_fwd(qf, kf, vf, h, pos_bias, kv_mask, causal=causal,
+                               dropout_mask=dmask)
+        ctx.save_for_backward(qf, kf, vf, pos_bias, kv_mask, dmask)
+        ctx.h, ctx.causal = h, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        qf, kf, vf, pos_bias, kv_mask, dmask = ctx.saved_tensors
+        # the gradient arrives through the caller's view/permute/reshape
+        dq, dk, dv, dbias = t5_attention_bwd(
+            qf, kf, vf, ctx.h, pos_bias, kv_mask, do.contiguous(), causal=ctx.causal,
+            dropout_mask=dmask, need_dbias=ctx.needs_input_grad[3])
+        return dq, dk, dv, dbias, None, None, None, None
+
+
 def fused_t5_attention_flat(qf, kf, vf, h: int, pos_bias=None, kv_mask=None, *,
                             causal: bool = False, dropout_rate: float = 0.0,
                             dropout_mask: Optional[torch.Tensor] = None):
     """Flat-layout entry: qf/kf/vf (H·B, L, D) f32, head dimension slowest.
-    ``dropout_mask`` (H·B, Lq, Lk) f32 holds {0, 1/(1−rate)} and is used
-    only when ``dropout_rate > 0``."""
+    ``dropout_mask`` (H·B, Lq, Lk) f32 holds {0, 1/(1−rate)} (see
+    :func:`make_dropout_mask`) and is used only when ``dropout_rate > 0``.
+    Differentiable in q, k, v and ``pos_bias``."""
     if dropout_rate > 0.0 and dropout_mask is None:
         raise ValueError("dropout_rate > 0 requires dropout_mask")
     dmask = dropout_mask if dropout_rate > 0.0 else None
-    _check(qf, kf, vf, h, pos_bias, kv_mask, dmask)
-    if qf.device.type == "cpu":
-        return t5_attention_reference(qf, kf, vf, h, pos_bias, kv_mask,
-                                      causal=causal, dropout_mask=dmask)
-    if qf.device.type != "cuda":
-        raise ValueError(f"t5_attention_fwd runs on CUDA or CPU tensors, not {qf.device}")
-    return _launch(qf, kf, vf, h, pos_bias, kv_mask, dmask, causal)
+    return _FusedT5Attention.apply(qf, kf, vf, pos_bias, kv_mask, dmask, h, causal)
 
 
 def _hbld(x):

@@ -17,18 +17,9 @@ import torch
 from genrec_tpu_torch.configs import TIGERConfig
 from genrec_tpu_torch.data import tiger_tokens
 from genrec_tpu_torch.data.contracts import read_codes
+from genrec_tpu_torch.device import resolve_device
 from genrec_tpu_torch.models.tiger import TIGER, generate, make_constraint
 from genrec_tpu_torch.train.checkpoint import restore_best
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card. A CUDA device without a card raises; the CPU
-    is used only when the caller asks for it."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the port serves on the card unless the "
-                           "caller passes device='cpu'")
-    return dev
 
 
 def tiger_model_fn(ckpt_dir: str, codes_path: str, cfg: Optional[TIGERConfig] = None,

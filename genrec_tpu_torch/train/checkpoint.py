@@ -1,38 +1,47 @@
-"""Best-parameters checkpoint of the port.
+"""Checkpoints of the port: the best parameters and the latest train state.
 
-The port's own format: one ``torch.save`` of a state_dict at
-``<ckpt_dir>/best.pt``, written to a temporary file and renamed into place
-so that a reader never sees half a file. ``restore_best`` returns None when
-there is none, as the reference's ``CheckpointStore.restore_best`` does.
-The port's trainer will add the full-state, bounded-retention checkpoints.
+Counterpart of ``genrec_tpu/train/checkpoint.py``'s ``CheckpointStore``, in
+the port's own format (``torch.save``), every file written to a temporary
+file and renamed into place so that a reader never sees half a file:
+
+- ``<ckpt_dir>/best.pt``: a state_dict of the best parameters
+  (:func:`save_best` / :func:`restore_best`; ``tiger_model_fn`` serves it);
+- ``<ckpt_dir>/latest_<step>.pt``: the full train state (model, optimizer,
+  scheduler, ``step``, ``epoch``, ``best_val``) with bounded retention: the
+  newest ``keep`` are kept (:class:`CheckpointStore`).
 """
 
 from __future__ import annotations
 
 import os
+import re
 import tempfile
-from typing import Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
 BEST = "best.pt"
+_LATEST = re.compile(r"^latest_(\d+)\.pt$")
 
 
-def save_best(state_dict: Dict[str, torch.Tensor], ckpt_dir: str) -> str:
-    """Write ``state_dict`` (moved to the CPU) as the best checkpoint of
-    ``ckpt_dir``; return its path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    path = os.path.join(ckpt_dir, BEST)
-    cpu = {k: v.detach().to("cpu") for k, v in state_dict.items()}
-    fd, tmp = tempfile.mkstemp(suffix=".pt", dir=ckpt_dir)
+def _atomic_save(obj, path: str) -> str:
+    d = os.path.dirname(path)
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".pt", dir=d)
     os.close(fd)
     try:
-        torch.save(cpu, tmp)
+        torch.save(obj, tmp)
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return path
+
+
+def save_best(state_dict: Dict[str, torch.Tensor], ckpt_dir: str) -> str:
+    """Write ``state_dict`` as the best checkpoint of ``ckpt_dir``; return
+    its path. Every restore loads onto the CPU."""
+    return _atomic_save(state_dict, os.path.join(ckpt_dir, BEST))
 
 
 def restore_best(ckpt_dir: str) -> Optional[Dict[str, torch.Tensor]]:
@@ -41,3 +50,47 @@ def restore_best(ckpt_dir: str) -> Optional[Dict[str, torch.Tensor]]:
     if not os.path.exists(path):
         return None
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+class CheckpointStore:
+    """Latest-state checkpoints with bounded retention, plus the best
+    parameters, under one directory."""
+
+    def __init__(self, ckpt_dir: str, keep: int = 5):
+        if keep < 1:
+            raise ValueError(f"keep must be at least 1, got {keep}")
+        self.dir = os.path.abspath(ckpt_dir)
+        self.keep = keep
+        os.makedirs(self.dir, exist_ok=True)
+
+    def steps(self) -> List[int]:
+        """Steps of the latest-state checkpoints on disk, oldest first."""
+        found = (_LATEST.match(n) for n in os.listdir(self.dir))
+        return sorted(int(m.group(1)) for m in found if m)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.dir, f"latest_{step:09d}.pt")
+
+    def save_latest(self, step: int, state: Dict[str, Any]) -> str:
+        """Write the train state of ``step``; drop all but the newest ``keep``."""
+        path = _atomic_save(state, self._path(step))
+        for old in self.steps()[:-self.keep]:
+            os.remove(self._path(old))
+        return path
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def restore_latest(self) -> Optional[Dict[str, Any]]:
+        """The newest train state on the CPU, or None when there is none."""
+        step = self.latest_step()
+        if step is None:
+            return None
+        return torch.load(self._path(step), map_location="cpu", weights_only=True)
+
+    def save_best(self, state_dict: Dict[str, torch.Tensor]) -> str:
+        return save_best(state_dict, self.dir)
+
+    def restore_best(self) -> Optional[Dict[str, torch.Tensor]]:
+        return restore_best(self.dir)

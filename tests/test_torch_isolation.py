@@ -5,15 +5,22 @@ on the card unless the caller asks for the CPU, and raise without a card.
 """
 
 import ast
+import dataclasses
 import os
 import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
+from genrec_tpu_torch.configs import TIGERConfig
+from genrec_tpu_torch.data.datasets import TigerArrays
+from genrec_tpu_torch.models.tiger import TIGER
+from genrec_tpu_torch.pipelines import tiger_pipeline
 from genrec_tpu_torch.serving import model_fn
+from genrec_tpu_torch.train.trainer import Trainer
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "genrec_tpu"}
@@ -79,3 +86,24 @@ def test_entry_point_defaults_to_the_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         model_fn.resolve_device("cuda:0")
     assert model_fn.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_training_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """``Trainer`` and ``tiger_pipeline.train`` run on the card unless given
+    ``device="cpu"``, and raise without one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TIGERConfig()
+    cfg = dataclasses.replace(cfg, trainer=dataclasses.replace(
+        cfg.trainer, ckpt_dir=str(tmp_path / "ckpt"), epochs=1))
+    z = np.zeros((2, 80), np.int32)
+    arrays = TigerArrays(z, z + 1, np.ones((2, 4), np.int32), np.arange(2, dtype=np.int32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg.trainer, model=TIGER(cfg), loss_fn=tiger_pipeline.loss_fn,
+                train_data=arrays.arrays)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tiger_pipeline.train(cfg, arrays, arrays)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tiger_pipeline.evaluate(cfg, tiger_pipeline.TIGERArtifacts({}, None), arrays)
+    trainer = Trainer(cfg.trainer, model=TIGER(cfg), loss_fn=tiger_pipeline.loss_fn,
+                      train_data=arrays.arrays, device="cpu")
+    assert next(trainer.model.parameters()).device == torch.device("cpu")
