@@ -10,34 +10,50 @@ which asserts; any failure exits non-zero and prints no result:
 
 1. require a CUDA device; print the card's name and power limit;
 2. build every kernel of the paths from ``genrec_tpu_torch/csrc`` (one nvcc
-   per source, all together, sm_90a);
+   per source, all four together, sm_90a);
 3. hold each kernel against its plain PyTorch version on the card and time
    the kernel, the plain version and one PyTorch library call of the same
-   function (CUDA events, and the profiler's device time): the forward at the
-   serving shapes and small edge cases within 1e-5 max abs (f32, another
-   summation order); the backward at the three train shapes of
+   function (CUDA events, and the profiler's device time): the T5 forward at
+   the serving shapes and small edge cases within 1e-5 max abs (f32, another
+   summation order); the T5 backward at the three train shapes of
    ``TIGERConfig()`` at batch 256 and edge cases within 1e-4·max|plain| +
-   1e-5 (dbias sums by atomics in an order that changes between runs);
+   1e-5 (dbias sums by atomics in an order that changes between runs); the
+   flash forward (out and lse within 1e-5) and its dq and dk/dv kernels
+   (within 1e-4·max|plain| + 1e-5) at the long-context SASRec shapes (B·H
+   128 at L=2048, 16 at L=4096, causal) and edge cases (D=64 with a bias,
+   L=128, lq ≠ lk, D=128);
 4. one train step of ``TIGERConfig()`` at B=16 and dropout 0 on the card
    against the same step on the CPU in f64 (see ``phase_train_step_parity``):
    loss within 1e-5, every gradient within the backward's bound;
-5. drive the serving path: a TIGER at ``TIGERConfig()`` widths with seeded
-   random weights, saved and served by ``tiger_model_fn`` on the card, a few
-   requests, then one batched trie-constrained ``generate`` at B=256 and 20
-   beams, compared on its first rows with the same call on the CPU;
-6. drive the training path at full width: ``tiger_pipeline.train`` for 3
-   epochs at batch 256 (dropout 0.1) on a 4096-user synthetic corpus, a
-   resume to a 4th epoch, ``evaluate``; then one profiled train step.
-   Kernel launch counts are set to 0 just before each of the paths 5 and 6
-   and read just after, and must equal what the path ran;
-7. print one JSON line of kernel records, the card line, and last the
+5. drive the TIGER serving path: a TIGER at ``TIGERConfig()`` widths with
+   seeded random weights, saved and served by ``tiger_model_fn`` on the card,
+   a few requests, then one batched trie-constrained ``generate`` at B=256
+   and 20 beams, compared on its first rows with the same call on the CPU;
+6. drive the TIGER training path at full width: ``tiger_pipeline.train`` for
+   3 epochs at batch 256 (dropout 0.1) on a 4096-user synthetic corpus, a
+   resume to a 4th epoch, ``evaluate``; then one profiled train step;
+7. drive the long-context SASRec (``long_context_sasrec_config(2048, 64)``,
+   random weights): ``predict_topk`` over B=1 requests and a B=32 batch,
+   held against the CPU; one B=2 train step against an f64 CPU step through
+   the kernels' plain versions; 20 train steps at B=32 with a falling loss,
+   3 at L=4096 and B=16, 2 at the config's dropout 0.2 (no flash launch);
+8. drive the parity SASRec: ``sasrec_pipeline.train`` (2 epochs) and
+   ``evaluate`` on a 4096-user corpus, requests through ``sasrec_model_fn``
+   (L=20: no flash launch);
+9. print one JSON line of kernel records, the card line, and last the
    ``{"ok": true, "device": ...}`` line.
+
+Kernel launch counts are set to 0 just before each of the paths 5-8 and read
+just after, and must equal what the path ran.
 
 TF32 is off for matmuls and cuDNN throughout, so f32 means f32.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -53,6 +69,8 @@ TOL = 1e-5          # kernel vs plain version, max abs, f32
 BWD_REL = 1e-4      # backward: max abs <= BWD_REL * max|plain| + TOL (f32, other
                     # summation orders, dbias by atomics in a varying order)
 GEN_TOL = 1e-4      # batched generate scores, card vs CPU
+LOSS_REL = 1e-6     # long-context step loss (~53, a sum of B·L·65 terms), card vs f64:
+                    # relative, a few f32 epsilons (1.2e-7)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 N_ITEMS = 700
@@ -62,6 +80,11 @@ BEAMS = 20
 TRAIN_USERS = 4096
 TRAIN_EPOCHS = 3
 STEP_B = 16
+KERNEL_SOURCES = ("t5_attention_fwd", "t5_attention_bwd", "flash_attention_fwd",
+                  "flash_attention_bwd")
+LC_L, LC_B, LC_STEPS = 2048, 32, 20      # long-context SASRec: train and batched serve
+LC_L2, LC_B2, LC_STEPS2 = 4096, 16, 3    # the longer history (kernels #4 and #6)
+LC_PARITY_B = 2
 
 
 def card_line() -> str:
@@ -163,6 +186,13 @@ def sdpa_inputs(a):
     return (qf.view(h, b, lq, d), kf.view(h, b, lk, d), vf.view(h, b, lk, d), add)
 
 
+def _bound(nbytes: int, ops: int) -> tuple:
+    """(ms, what bounds it): the larger of the bytes at the HBM rate and the
+    f32 operations at the f32 rate outside the tensor cores."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def attention_bound_ms(a) -> tuple:
     """Least time on the card for the kernel's work: each input read once and
     the output written once at the HBM rate, against the f32 operations
@@ -176,19 +206,22 @@ def attention_bound_ms(a) -> tuple:
         if a[key] is not None:
             nbytes += a[key].numel() * 4  # the mask goes to the kernel as int32
     ops = hb * lq * lk * (4 * d + 7 + (1 if a["dropout_mask"] is not None else 0))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return _bound(nbytes, ops)
 
 
 def phase_kernels():
     from genrec_tpu_torch.ops import _build
     from genrec_tpu_torch.ops import t5_attention as ta
 
+    from genrec_tpu_torch.ops import attention as fa
+
     t0 = time.perf_counter()
-    _build.build_all(["t5_attention_fwd", "t5_attention_bwd"])  # one nvcc each, together
+    _build.build_all(KERNEL_SOURCES)  # one nvcc each, all together
     ta.load_kernel()
     ta.load_bwd_kernel()
-    print(f"[build] t5_attention_fwd and t5_attention_bwd built and loaded in "
+    fa.load_fwd_kernel()
+    fa.load_bwd_kernel()
+    print(f"[build] {', '.join(KERNEL_SOURCES)} built and loaded in "
           f"{time.perf_counter() - t0:.3f} s")
     for name, (secs, log) in _build.build_log.items():
         print(f"[build] {name}: nvcc {secs:.3f} s\n{log.strip()}")
@@ -275,9 +308,7 @@ def bwd_bound_ms(a) -> tuple:
         per_score += 1
     if a["dropout_mask"] is not None:
         per_score += 2
-    ops = hb * lq * lk * per_score
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return _bound(nbytes, hb * lq * lk * per_score)
 
 
 def sdpa_backward(a):
@@ -377,6 +408,450 @@ def phase_bwd_kernels():
               f"ms={dev[0]:.5f} plain_ms={dev[1]:.5f} library_ms={dev[2]} | "
               f"bound_ms={bound_ms:.6f} ({bound_by}) | library: {lib_note}")
     return results
+
+
+def flash_case(name, bh, lq, lk, d, *, causal, bias=False, seed=0):
+    """Inputs of one flash-kernel case (flat (B·H, L, D) f32 on the card, made
+    from a seed with numpy), with the plain forward's (out, lse) of the
+    bias-free inputs and an output gradient for the backward kernels, which
+    take no bias (a biased backward recomputes in plain torch)."""
+    from genrec_tpu_torch.ops import attention as fa
+
+    r = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(r.normal(size=shape).astype(np.float32)).cuda()
+
+    a = dict(qf=t(bh, lq, d), kf=t(bh, lk, d), vf=t(bh, lk, d), causal=causal,
+             bias=t(bh, lq, lk) if bias else None, do=t(bh, lq, d))
+    a["out"], a["lse"] = fa.flash_attention_fwd_reference(a["qf"], a["kf"], a["vf"],
+                                                          causal=causal)
+    a["delta"] = fa._delta(a["do"], a["out"])
+    return name, a
+
+
+def _unmasked_scores(a) -> int:
+    bh, lq, _ = a["qf"].shape
+    lk = a["kf"].shape[1]
+    return bh * (lq * (lq + 1) // 2 if a["causal"] else lq * lk)
+
+
+def flash_bounds(a) -> dict:
+    """Least time on the card for each flash kernel's work, from this run's
+    inputs: each input read once and each output written once at the HBM
+    rate, against the f32 operations per unmasked score at the f32 rate
+    outside the tensor cores: forward 4·D + 5 (q·k, p·v; max, subtract, exp,
+    sum, rescale) + 1 with a bias; dq 6·D + 4 (q·k, do·v, ds·k; exp,
+    subtract, subtract, multiply); dk/dv 8·D + 4 (q·k, do·v, p·do, ds·q)."""
+    bh, lq, d = a["qf"].shape
+    lk = a["kf"].shape[1]
+    n = _unmasked_scores(a)
+    qb, kb, rowb = bh * lq * d * 4, bh * lk * d * 4, bh * lq * 4
+    bias_b = 0 if a["bias"] is None else a["bias"].numel() * 4
+    return {
+        "fwd": _bound(2 * qb + 2 * kb + rowb + bias_b, n * (4 * d + 5 + (a["bias"] is not None))),
+        "dq": _bound(3 * qb + 2 * kb + 2 * rowb, n * (6 * d + 4)),      # q, do, dq; k, v
+        "dkv": _bound(2 * qb + 4 * kb + 2 * rowb, n * (8 * d + 4)),     # q, do; k, v, dk, dv
+    }
+
+
+def _sdpa_fwd_bwd(a):
+    """The library yardsticks: one scaled_dot_product_attention call on the
+    same inputs ((B·H, 1, L, D) views, default scale 1/√D, is_causal or the
+    bias as attn_mask), and autograd through it without the bias. Timed only;
+    the port never calls it."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4 = (a[k][:, None] for k in ("qf", "kf", "vf"))
+    mask = None if a["bias"] is None else a["bias"][:, None]
+    fwd = lambda: sdpa(q4, k4, v4, attn_mask=mask, is_causal=a["causal"])  # noqa: E731
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q4, k4, v4)]
+    out = sdpa(*leaves, is_causal=a["causal"])
+    do = a["do"][:, None]
+    bwd = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)  # noqa: E731
+    return fwd, bwd
+
+
+def _worst(got, want):
+    """Largest max|kernel − plain| / max|plain| over matching tensors, and the
+    largest max abs; raises past BWD_REL·max|plain| + TOL."""
+    rel, absolute = 0.0, 0.0
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all(), "non-finite kernel output"
+        err, scale = (g - w).abs().max().item(), w.abs().max().item()
+        assert err <= BWD_REL * scale + TOL, f"max abs {err} > {BWD_REL}*{scale}+{TOL}"
+        rel, absolute = max(rel, err / (scale + 1e-30)), max(absolute, err)
+    return rel, absolute
+
+
+def phase_flash(timed=True):
+    """Kernels #3-#6 (the flash forward, dq and dk/dv kernels) against their
+    plain versions on the card: the forward's out and lse within 1e-5 max
+    abs, dq, dk and dv within 1e-4·max|plain| + 1e-5 (f32, other summation
+    orders), at the long-context SASRec shapes (B·H = 32·4 at L=2048, 16 at
+    L=4096; the plain version's score tensor at B·H = 64 would be 4.3 GB)
+    and at edge cases; then times of each kernel, its plain version and SDPA."""
+    from genrec_tpu_torch.ops import attention as fa
+
+    cases = [
+        flash_case("long_2048", LC_B * 4, LC_L, LC_L, 16, causal=True, seed=21),
+        flash_case("long_4096", 16, LC_L2, LC_L2, 16, causal=True, seed=22),
+        flash_case("bias_512_d64", 8, 512, 512, 64, causal=False, bias=True, seed=23),
+        flash_case("small_128", 4, 128, 128, 16, causal=False, seed=24),
+        flash_case("lq!=lk_256x512", 4, 256, 512, 16, causal=False, seed=25),
+        flash_case("d128_256", 2, 256, 256, 128, causal=True, seed=26),
+    ]
+    results = {}
+    for name, a in cases:
+        q, k, v, causal = a["qf"], a["kf"], a["vf"], a["causal"]
+        bwd_in = (q, k, v, a["do"], a["lse"], a["delta"])
+        fwd = lambda: fa.flash_attention_fwd(q, k, v, a["bias"], causal=causal)  # noqa: E731
+        fwd_plain = lambda: fa.flash_attention_fwd_reference(  # noqa: E731
+            q, k, v, a["bias"], causal=causal)
+        dq = lambda: fa.flash_attention_bwd_dq(*bwd_in, causal=causal)  # noqa: E731
+        dq_plain = lambda: fa.flash_attention_bwd_dq_reference(*bwd_in, causal=causal)  # noqa: E731
+        dkv = lambda: fa.flash_attention_bwd_dkv(*bwd_in, causal=causal)  # noqa: E731
+        dkv_plain = lambda: fa.flash_attention_bwd_dkv_reference(  # noqa: E731
+            *bwd_in, causal=causal)
+        got, want = fwd(), fwd_plain()
+        torch.cuda.synchronize()
+        errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+        assert all(torch.isfinite(g).all() for g in got), f"{name}: non-finite forward"
+        assert max(errs) <= TOL, f"{name}: forward out/lse vs plain max abs {errs} > {TOL}"
+        g_dq, w_dq = dq(), dq_plain()
+        g_dkv, w_dkv = dkv(), dkv_plain()
+        torch.cuda.synchronize()
+        rel_dq, abs_dq = _worst([g_dq], [w_dq])
+        rel_dkv, abs_dkv = _worst(g_dkv, w_dkv)
+        r = dict(fwd_err=max(errs), dq_err=abs_dq, dkv_err=abs_dkv, dq_rel=rel_dq,
+                 dkv_rel=rel_dkv, bounds=flash_bounds(a))
+        print(f"[flash] {name} q={tuple(q.shape)} lk={k.shape[1]} causal={causal} "
+              f"bias={a['bias'] is not None}: fwd out/lse max abs {errs[0]:.2e}/{errs[1]:.2e}; "
+              f"dq max abs {abs_dq:.2e} (max|plain| {w_dq.abs().max().item():.3e}), dk/dv "
+              f"{abs_dkv:.2e} (max|plain| {max(w.abs().max().item() for w in w_dkv):.3e})")
+        del got, want, g_dq, w_dq, g_dkv, w_dkv
+        if timed:
+            lib_fwd, lib_bwd = _sdpa_fwd_bwd(a)
+            iters = 5 if q.shape[1] >= 2048 else 20
+            fns = {"fwd": fwd, "fwd_plain": fwd_plain, "fwd_library": lib_fwd, "dq": dq,
+                   "dq_plain": dq_plain, "dkv": dkv, "dkv_plain": dkv_plain,
+                   "bwd_plain": lambda: fa.flash_attention_bwd_reference(
+                       q, k, v, a["out"], a["lse"], a["do"], causal=causal),
+                   "bwd_library": lib_bwd}
+            for key, fn in fns.items():
+                r[key + "_ms"] = cuda_ms(fn, iters)
+                r[key + "_device_ms"] = device_ms(fn, iters)
+            torch.cuda.empty_cache()
+            b = r["bounds"]
+            print(f"[flash]   per call ms (device ms): fwd {r['fwd_ms']:.4f} "
+                  f"({r['fwd_device_ms']:.4f}), plain {r['fwd_plain_ms']:.4f} "
+                  f"({r['fwd_plain_device_ms']:.4f}), SDPA {r['fwd_library_ms']:.4f} "
+                  f"({r['fwd_library_device_ms']:.4f}), bound {b['fwd'][0]:.4f} ({b['fwd'][1]})")
+            print(f"[flash]   dq {r['dq_ms']:.4f} ({r['dq_device_ms']:.4f}), plain "
+                  f"{r['dq_plain_ms']:.4f}, bound {b['dq'][0]:.4f} ({b['dq'][1]}); dk/dv "
+                  f"{r['dkv_ms']:.4f} ({r['dkv_device_ms']:.4f}), plain {r['dkv_plain_ms']:.4f}, "
+                  f"bound {b['dkv'][0]:.4f} ({b['dkv'][1]}); whole plain backward "
+                  f"{r['bwd_plain_ms']:.4f} ({r['bwd_plain_device_ms']:.4f}), SDPA backward "
+                  f"{r['bwd_library_ms']:.4f} ({r['bwd_library_device_ms']:.4f})")
+        results[name] = r
+        torch.cuda.empty_cache()
+    return results
+
+
+def _flash_counts():
+    from genrec_tpu_torch.ops import attention as fa
+
+    return fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches
+
+
+def _reset_flash_counts():
+    from genrec_tpu_torch.ops import attention as fa
+
+    fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+
+
+def _lc_batch(rng, b, length, item_num):
+    """Left-padded long histories (the first row full, the others with 1..L
+    items) and their shifted targets, as int64 tensors on the CPU."""
+    x = rng.integers(1, item_num + 1, size=(b, length + 1))
+    for i in range(1, b):
+        x[i, :int(rng.integers(0, length))] = 0
+    inputs = x[:, :-1]
+    targets = np.where(inputs == 0, 0, x[:, 1:])
+    return torch.from_numpy(inputs), torch.from_numpy(targets)
+
+
+def phase_sasrec_large_serve():
+    """Serving the long-context SASRec (``long_context_sasrec_config(2048,
+    64)``, random weights from a generator): ``predict_topk(k=10)`` over a few
+    B=1 requests and one B=32 batch on the card, 2 forward-kernel launches
+    per call (one per block); top-10 scores within GEN_TOL of the same call
+    on the CPU (plain attention), ids equal where the CPU's scores are not
+    tied within GEN_TOL."""
+    from genrec_tpu_torch.configs import long_context_sasrec_config
+    from genrec_tpu_torch.models.sasrec_large import SASRecLarge
+
+    cfg = long_context_sasrec_config(LC_L, 64)
+    item_num = cfg.embedding.vocab_size - 1
+    cpu = SASRecLarge(item_num, cfg, use_sharded=False,
+                      generator=torch.Generator().manual_seed(0)).eval()
+    model = copy.deepcopy(cpu).to("cuda")
+    rng = np.random.default_rng(5)
+    requests = [_lc_batch(rng, 1, LC_L, item_num)[0] for _ in range(3)]
+    batch = _lc_batch(rng, LC_B, LC_L, item_num)[0]
+
+    # ---- the main path: counts at 0 just before, read just after ----
+    _reset_flash_counts()
+    with torch.no_grad():
+        outs = []
+        for ids in requests + [batch]:
+            before = _flash_counts()[0]
+            outs.append(model.predict_topk(ids.cuda(), TOP_K))
+            torch.cuda.synchronize()
+            assert _flash_counts()[0] - before == cfg.num_blocks, _flash_counts()
+        n_req = 10
+        t0 = time.perf_counter()
+        for _ in range(n_req):
+            model.predict_topk(requests[0].cuda(), TOP_K)[1].cpu()
+        req_s = n_req / (time.perf_counter() - t0)
+        reps = 3
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            model.predict_topk(batch.cuda(), TOP_K)[1].cpu()
+        batch_s = reps * LC_B / (time.perf_counter() - t0)
+    counts = _flash_counts()
+    # ---- end of the main path ----
+    calls = len(requests) + 1 + n_req + reps
+    assert counts == (cfg.num_blocks * calls, 0, 0), counts
+
+    rows = 4
+    with torch.no_grad():
+        for ids, (vals, idx) in zip(requests + [batch[:rows]], outs[:-1] + [
+                (outs[-1][0][:rows], outs[-1][1][:rows])]):
+            logits = cpu(ids)[:, -1, :] @ cpu.item_table.T
+            want, _ = torch.topk(logits, TOP_K)
+            err = (vals.cpu() - want).abs().max().item()
+            assert err <= GEN_TOL, f"top-{TOP_K} scores card vs CPU max abs {err}"
+            # the card's ids score, on the CPU, as the CPU's own top-k does
+            picked = torch.gather(logits, 1, idx.cpu())
+            assert (picked - want).abs().max().item() <= GEN_TOL, "card ids are not a top-k"
+    print(f"[sasrec-large serve] L={LC_L} d=64 H=4 items={item_num}: top-{TOP_K} of "
+          f"{len(requests)} B=1 requests and the first {rows} rows of a B={LC_B} batch equal "
+          f"the CPU run's within {GEN_TOL}; {cfg.num_blocks} forward launches per call")
+    print(f"[sasrec-large serve] {req_s:.2f} requests/s at B=1, {batch_s:.1f} histories/s at "
+          f"B={LC_B} (host clock, after warm-up)")
+    profile_window(f"one long-context request (B=1, L={LC_L})",
+                   lambda: model.predict_topk(requests[0].cuda(), TOP_K))
+    profile_window(f"one long-context batch (B={LC_B}, L={LC_L})",
+                   lambda: model.predict_topk(batch.cuda(), TOP_K))
+    return dict(fwd=counts[0], req_s=req_s, batch_s=batch_s)
+
+
+def phase_sasrec_large_train_parity():
+    """One train step of the long-context SASRec at B=2, L=2048 and dropout
+    0 on the card (flash kernels) against the same step on the CPU in f64,
+    its attention forced through the flash Function (the kernels' plain
+    versions, in f64): loss within LOSS_REL, every gradient within
+    BWD_REL·max + TOL, on the same weights, inputs and negatives."""
+    from genrec_tpu_torch.configs import long_context_sasrec_config
+    from genrec_tpu_torch.models.sasrec_large import SASRecLarge, train_loss_sampled
+    from genrec_tpu_torch.ops import attention as fa
+    from genrec_tpu_torch.ops.negative_sampling import sample_negatives
+
+    cfg = dataclasses.replace(long_context_sasrec_config(LC_L, 64), dropout=0.0)
+    item_num = cfg.embedding.vocab_size - 1
+    base = SASRecLarge(item_num, cfg, use_sharded=False,
+                       generator=torch.Generator().manual_seed(1))
+    inputs, targets = _lc_batch(np.random.default_rng(6), LC_PARITY_B, LC_L, item_num)
+    neg = sample_negatives(torch.Generator().manual_seed(2), torch.cat([inputs, targets], 1),
+                           item_num, cfg.num_neg_samples)
+    out = {}
+    for name, dev, dtype in (("card", "cuda", torch.float32), ("cpu_f64", "cpu", torch.float64)):
+        model = copy.deepcopy(base).to(dev, dtype).train()
+        if dev == "cpu":
+            for blk in model.blocks:
+                blk.attn_fn = functools.partial(fa.multi_head_attention, force_kernel=True)
+        before = _flash_counts()
+        loss, _ = train_loss_sampled(model, inputs.to(dev), targets.to(dev), None, cfg,
+                                     item_num, neg=neg.to(dev))
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            got = tuple(x - y for x, y in zip(_flash_counts(), before))
+            assert got == (cfg.num_blocks,) * 3, got
+        out[name] = (loss.item(), {k: p.grad.double().cpu() for k, p in model.named_parameters()})
+    loss_ref, ref = out["cpu_f64"]
+    loss_err = abs(out["card"][0] - loss_ref)
+    assert loss_err <= LOSS_REL * abs(loss_ref), (
+        f"long-context step loss card vs f64 CPU {loss_err} > {LOSS_REL}*{abs(loss_ref)}")
+    worst = (0.0, "")
+    for k, g_ref in ref.items():
+        err, scale = (out["card"][1][k] - g_ref).abs().max().item(), g_ref.abs().max().item()
+        assert err <= BWD_REL * scale + TOL, f"{k}: grad card vs f64 CPU {err} (max {scale})"
+        worst = max(worst, (err / (BWD_REL * scale + TOL), k))
+    print(f"[sasrec-large train-step] B={LC_PARITY_B} L={LC_L} dropout 0: loss card "
+          f"{out['card'][0]:.7f}, CPU f64 {loss_ref:.7f} (|diff| {loss_err:.2e}); {len(ref)} "
+          f"gradients against the f64 step, worst max_err at {100 * worst[0]:.1f}% of its bound "
+          f"({worst[1]})")
+
+
+def _lc_train(cfg, batch_size, steps, seed):
+    """``steps`` train steps of a fresh long-context SASRec on the card on one
+    fixed batch, as the reference's single-chip run steps it, with fresh
+    negatives and dropout each step from a generator on the card. The per-step
+    loss moves by about ±1.5 with the fresh negatives, so the loss is also
+    read before and after on one fixed set of negatives. Returns the
+    per-step losses, that loss before and after, the ms per step over the
+    steps after the first (host clock), the step and the fixed-negatives
+    loss."""
+    from genrec_tpu_torch.models.sasrec_large import (SASRecLarge, make_train_step,
+                                                      train_loss_sampled)
+    from genrec_tpu_torch.ops.negative_sampling import sample_negatives
+
+    item_num = cfg.embedding.vocab_size - 1
+    model = SASRecLarge(item_num, cfg, use_sharded=False,
+                        generator=torch.Generator().manual_seed(seed)).to("cuda")
+    opt = torch.optim.Adam(model.parameters(), lr=cfg.trainer.lr, betas=(0.9, 0.999), eps=1e-8)
+    step = make_train_step(model, opt, cfg, item_num)
+    inputs, targets = (t.cuda() for t in _lc_batch(np.random.default_rng(seed), batch_size,
+                                                     cfg.max_len, item_num))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    fixed_neg = sample_negatives(gen, torch.cat([inputs, targets], 1), item_num,
+                                 cfg.num_neg_samples)
+
+    def fixed_loss():
+        model.eval()
+        with torch.no_grad():
+            return train_loss_sampled(model, inputs, targets, None, cfg, item_num,
+                                      neg=fixed_neg)[0].item()
+
+    before = fixed_loss()
+    losses = [step(inputs, targets, gen)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps - 1):
+        losses.append(step(inputs, targets, gen))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / max(steps - 1, 1) * 1e3
+    losses = [x.item() for x in losses]
+    after = fixed_loss()
+    assert all(np.isfinite(losses + [before, after])), (losses, before, after)
+    return dict(losses=losses, fixed=(before, after), ms=ms,
+                step=lambda: step(inputs, targets, gen), fixed_loss=fixed_loss)
+
+
+def phase_sasrec_large_train():
+    """Training the long-context SASRec at full width on the card: 20 steps
+    at B=32, L=2048, dropout 0 (kernels #3 and #5: 2 forward, 2 dq and 2
+    dk/dv launches per step), the loss on fixed negatives falling; 3 steps at L=4096, B=16
+    (#4 and #6); then 2 steps at the config's dropout 0.2, whose training
+    forward takes the plain attention with dropout, as the reference routes
+    it: no flash launch."""
+    from genrec_tpu_torch.configs import long_context_sasrec_config
+
+    cfg = dataclasses.replace(long_context_sasrec_config(LC_L, 64), dropout=0.0)
+    # ---- the main path at L=2048: counts at 0 just before, read just after ----
+    _reset_flash_counts()
+    run = _lc_train(cfg, LC_B, LC_STEPS, seed=3)
+    counts = _flash_counts()
+    # ---- end ----
+    losses, fixed, ms_step, step = run["losses"], run["fixed"], run["ms"], run["step"]
+    probe = []
+    for _ in range(4):  # 40 more steps, outside the counted path: the loss's course
+        for _ in range(10):
+            step()
+        probe.append(round(run["fixed_loss"](), 4))
+    print(f"[sasrec-large train] loss on fixed negatives after 30, 40, 50, 60 steps: {probe}")
+    per_step = cfg.num_blocks  # and 2 more forwards for the fixed-negatives loss
+    assert counts == (per_step * (LC_STEPS + 2), per_step * LC_STEPS, per_step * LC_STEPS), counts
+    assert fixed[1] < fixed[0], fixed
+    print(f"[sasrec-large train] B={LC_B} L={LC_L} d=64 H=4 dropout 0, {LC_STEPS} steps: losses "
+          f"{[round(x, 4) for x in losses]}; loss on fixed negatives {fixed[0]:.4f} before, "
+          f"{fixed[1]:.4f} after")
+    print(f"[sasrec-large train] {ms_step:.2f} ms/step, {LC_B / ms_step * 1e3:.1f} examples/s, "
+          f"{LC_B * LC_L / ms_step * 1e3:.0f} tokens/s (host clock, steps 2-{LC_STEPS}); "
+          f"flash launches fwd/dq/dkv {counts}")
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_window(f"one long-context train step (B={LC_B}, L={LC_L})", step, top_n=12)
+    busy = None if prof is None else prof[0] / 1e3 / ms_step
+    if busy is not None:
+        print(f"[sasrec-large train] device busy {prof[0] / 1e3:.3f} ms per step against "
+              f"{ms_step:.2f} ms per step on the host clock without the profiler: "
+              f"{100 * busy:.1f}% busy; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del step
+    torch.cuda.empty_cache()
+
+    cfg2 = dataclasses.replace(long_context_sasrec_config(LC_L2, 64), dropout=0.0)
+    # ---- the main path at L=4096 ----
+    _reset_flash_counts()
+    run2 = _lc_train(cfg2, LC_B2, LC_STEPS2, seed=4)
+    losses2, ms_step2 = run2["losses"], run2["ms"]
+    counts2 = _flash_counts()
+    # ---- end ----
+    assert counts2 == (per_step * (LC_STEPS2 + 2), per_step * LC_STEPS2,
+                       per_step * LC_STEPS2), counts2
+    print(f"[sasrec-large train] B={LC_B2} L={LC_L2}, {LC_STEPS2} steps: losses "
+          f"{[round(x, 4) for x in losses2]}, {ms_step2:.2f} ms/step (steps 2-{LC_STEPS2}); "
+          f"flash launches fwd/dq/dkv {counts2}")
+    torch.cuda.empty_cache()
+
+    cfg3 = long_context_sasrec_config(LC_L, 64)
+    assert cfg3.dropout == 0.2
+    # ---- the main path at the config's dropout ----
+    _reset_flash_counts()
+    run3 = _lc_train(cfg3, LC_B, 2, seed=5)
+    losses3, ms_step3 = run3["losses"], run3["ms"]
+    counts3 = _flash_counts()
+    # ---- end ----
+    assert counts3 == (2 * per_step, 0, 0), counts3  # the fixed-negatives loss only
+    print(f"[sasrec-large train] B={LC_B} L={LC_L} dropout {cfg3.dropout}, 2 steps: losses "
+          f"{[round(x, 4) for x in losses3]}, {ms_step3:.2f} ms for step 2; flash launches "
+          f"{counts3}: none in training (attention dropout takes the plain path, as in the "
+          f"reference), {2 * per_step} in the two dropout-free reads of the fixed-negatives loss")
+    torch.cuda.empty_cache()
+    return dict(counts=[counts, counts2, counts3], ms_step=ms_step, busy=busy,
+                examples_s=LC_B / ms_step * 1e3, ms_step_4096=ms_step2,
+                ms_step_dropout=ms_step3)
+
+
+def phase_sasrec(tmp):
+    """The parity SASRec (``SASRecConfig()``: L 20, d 16, 1 head, dropout
+    0.2) through ``sasrec_pipeline.train`` (2 epochs at batch 128) on a
+    4096-user, 700-item synthetic corpus on the card, ``evaluate``, and a few
+    requests through ``sasrec_model_fn``. Its attention is short (L=20), so
+    it takes the plain path: no flash launch."""
+    from genrec_tpu_torch.configs import SASRecConfig
+    from genrec_tpu_torch.data.synthetic import make_interactions
+    from genrec_tpu_torch.pipelines import sasrec_pipeline
+    from genrec_tpu_torch.serving.model_fn import sasrec_model_fn
+
+    data = make_interactions(num_users=TRAIN_USERS, num_items=N_ITEMS, seed=1)
+    base = SASRecConfig()
+    cfg = dataclasses.replace(base, trainer=dataclasses.replace(
+        base.trainer, epochs=2, ckpt_dir=os.path.join(tmp, "sasrec_ckpt"), seed=0))
+    # ---- the main path: counts at 0 just before, read just after ----
+    _reset_flash_counts()
+    art = sasrec_pipeline.train(cfg, data, device="cuda")
+    metrics = sasrec_pipeline.evaluate(cfg, art, data, device="cuda")
+    fn = sasrec_model_fn(cfg.trainer.ckpt_dir, data, cfg, device="cuda")
+    served = [fn(h, TOP_K) for h in ([], [1, 2, 3], list(range(5, 40)))]
+    torch.cuda.synchronize()
+    counts = _flash_counts()
+    # ---- end ----
+    assert counts == (0, 0, 0), counts
+    res = art.result
+    assert res.epochs_run == 2 and all(np.isfinite(res.train_losses + res.val_losses))
+    assert set(metrics) == {f"{m}@{k}" for m in ("Hit", "NDCG") for k in cfg.topk_list}
+    for hist, items in zip(([], [1, 2, 3], list(range(5, 40))), served):
+        assert len(items) == TOP_K and len(set(items)) == TOP_K, items
+        assert all(1 <= i <= art.item_num for i in items), items
+        assert not set(items) & set(hist[-cfg.max_len:]), (items, hist)
+    print(f"[sasrec] SASRecConfig() 2 epochs at batch 128: train losses "
+          f"{[round(x, 4) for x in res.train_losses]}, val "
+          f"{[round(x, 4) for x in res.val_losses]}, "
+          f"{res.steady_examples_per_sec:.1f} train examples/s (epoch 2, host clock); "
+          + ", ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+    print(f"[sasrec] served {served[1]} for history [1, 2, 3]; flash launches {counts}")
 
 
 def _history_batch(rng, n_rows, cfg, table):
@@ -705,6 +1180,43 @@ def profile_window(label, work, reps: int = 3, top_n: int = 6):
     return busy_us / reps, wall_us / reps
 
 
+def flash_records(flash, lc_serve, lc_train):
+    """The JSON records of kernels #3-#6 (three CUDA kernels), timed at the
+    long-context train shape (B·H 128, L 2048, D 16, causal); launches from
+    the long-context serving and training paths."""
+    at_2048, at_4096 = flash["long_2048"], flash["long_4096"]
+    runs = dict(zip(("train_2048", "train_4096", "train_dropout"), lc_train["counts"]))
+    kernels = (  # name, result key, source, Pallas kernels replaced, index into the counts
+        ("flash_attention_fwd", "fwd", "flash_attention_fwd.cu",
+         "genrec_tpu/ops/attention.py:69 (_flash_kernel) and :117 (_flash_fwd_kernel_blocked)", 0),
+        ("flash_attention_bwd_dq", "dq", "flash_attention_bwd.cu",
+         "genrec_tpu/ops/attention.py:251 (_flash_bwd_dq_kernel) and :354 "
+         "(_flash_bwd_dq_kernel_blocked)", 1),
+        ("flash_attention_bwd_dkv", "dkv", "flash_attention_bwd.cu",
+         "genrec_tpu/ops/attention.py:292 (_flash_bwd_dkv_kernel) and :391 "
+         "(_flash_bwd_dkv_kernel_blocked)", 2))
+    recs = []
+    for name, key, src, replaces, i in kernels:
+        by_path = {"serve": lc_serve["fwd"] if i == 0 else 0,
+                   **{path: counts[i] for path, counts in runs.items()}}
+        lib = "fwd_library" if key == "fwd" else "bwd_library"
+        recs.append({
+            "name": name, "route": "cuda", "source": f"genrec_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(r[f"{key}_err"] for r in flash.values()),
+            "ms": at_2048[f"{key}_ms"], "plain_ms": at_2048[f"{key}_plain_ms"],
+            "bound_ms": at_2048["bounds"][key][0], "bound_by": at_2048["bounds"][key][1],
+            "library_ms": at_2048[f"{lib}_ms"], "shape": "q/k/v (32*4, 2048, 16) f32, causal",
+            "device_ms": at_2048[f"{key}_device_ms"],
+            "plain_device_ms": at_2048[f"{key}_plain_device_ms"],
+            "library_device_ms": at_2048[f"{lib}_device_ms"],
+            "library_note": ("SDPA forward" if key == "fwd"
+                             else "SDPA backward: dq, dk and dv in one call"),
+            "ms_4096": at_4096[f"{key}_ms"], "bound_ms_4096": at_4096["bounds"][key][0]})
+    return recs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the card only",
@@ -720,12 +1232,19 @@ def main() -> int:
     t_start = time.perf_counter()
     results = phase_kernels()
     bwd = phase_bwd_kernels()
+    flash = phase_flash()
     tr, te, codes = train_corpus()
     phase_train_step_parity(tr)
     with tempfile.TemporaryDirectory() as tmp:
         launches, req_s, seqs_s = phase_serving(tmp)
         train = phase_train(tmp, tr, te, codes)
+        lc_serve = phase_sasrec_large_serve()
+        phase_sasrec_large_train_parity()
+        phase_sasrec(tmp)
+        lc_train = phase_sasrec_large_train()
     assert launches > 0 and train["fwd"] > 0 and train["bwd"] > 0
+    assert lc_serve["fwd"] > 0 and all(n > 0 for n in lc_train["counts"][0])
+    assert all(n > 0 for n in lc_train["counts"][1])
     bench = results["bench"]
     fwd_record = {
         "name": "t5_attention_fwd", "route": "cuda",
@@ -762,11 +1281,15 @@ def main() -> int:
         **{f"{k}_no_dropout_library_ms": bwd[f"{k}_no_dropout"]["library_ms"]
            for k in ("enc_train", "cross_train")},
     }
-    print(f"[summary] {req_s:.2f} requests/s, {seqs_s:.1f} seqs/s, "
+    print(f"[summary] TIGER: {req_s:.2f} requests/s, {seqs_s:.1f} seqs/s, "
           f"{train['examples_s']:.1f} train examples/s, {train['ms_step']:.2f} ms/train step, "
-          f"train step device busy share {train['busy']}, "
+          f"train step device busy share {train['busy']}; long-context SASRec: "
+          f"{lc_serve['req_s']:.2f} requests/s, {lc_serve['batch_s']:.1f} histories/s at "
+          f"B={LC_B}, {lc_train['ms_step']:.2f} ms/train step at B={LC_B}, "
+          f"{lc_train['examples_s']:.1f} examples/s, busy share {lc_train['busy']}; "
           f"{time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [fwd_record, bwd_record]}))
+    kernels = [fwd_record, bwd_record] + flash_records(flash, lc_serve, lc_train)
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

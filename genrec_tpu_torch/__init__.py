@@ -11,7 +11,10 @@ CUDA kernel here (``csrc/``), built with ``nvcc`` at first use into
 plain PyTorch version beside it, used only for tensors that lie on the CPU;
 for a CUDA tensor the wrapper launches the kernel or raises.
 
-Ported so far: TIGER trie-constrained serving (``serving/model_fn.py``
-``tiger_model_fn``), with the fused T5 attention forward
-(``ops/t5_attention.py``) as its kernel.
+Ported so far: TIGER serving and training (``serving/model_fn.py``
+``tiger_model_fn``, ``pipelines/tiger_pipeline.py``) with the fused T5
+attention forward and backward (``ops/t5_attention.py``), and the SASRec
+family on one device (``pipelines/sasrec_pipeline.py``, ``sasrec_model_fn``,
+the long-context ``models/sasrec_large.py``) with the flash attention forward
+and backward (``ops/attention.py``) as its kernels.
 """

@@ -1,10 +1,12 @@
 """Configuration dataclasses of the port.
 
 A copy of ``genrec_tpu.configs``' ``MeshConfig``, ``TrainerConfig``,
-``T5ArchConfig`` and ``TIGERConfig``: the same fields with the same
-defaults, so that a configuration compares field for field with the
-reference's. Defaults reproduce the reference configuration
-(`RQVAE-T5/main.py:4-35`, `RQVAE-T5/model.py:9-23`).
+``T5ArchConfig``, ``TIGERConfig``, ``SASRecConfig``,
+``ShardedEmbeddingConfig``, ``SASRecLargeConfig`` and
+``long_context_sasrec_config``: the same fields with the same defaults, so
+that a configuration compares field for field with the reference's.
+Defaults reproduce the reference configurations (`RQVAE-T5/main.py:4-35`,
+`RQVAE-T5/model.py:9-23`, `SASRec/main.py:6-42`).
 
 ``T5ArchConfig.fused_attention`` stays as a field for that comparison, but
 the port does not read it: the port always runs attention without a KV
@@ -120,3 +122,83 @@ class TIGERConfig:
     )
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     target_len_composite: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class SASRecConfig:
+    """SASRec self-attentive ranker. Mirrors `SASRec/main.py:6-42`."""
+
+    task_id: str = "task1"
+    data_path: str = "data/user_item_interact.h5"
+    max_len: int = 20
+    d: int = 16
+    num_blocks: int = 2
+    num_heads: int = 1
+    mlp_layer: int = 64
+    dropout: float = 0.2
+    layernorm_eps: float = 1e-8
+    num_neg_samples: int = 10
+    loss_eps: float = 1e-24
+    min_seq_len: int = 3
+    topk_list: Tuple[int, ...] = (2, 5, 10, 20)
+    top_k: int = 10
+    emb_init_stddev: Optional[float] = None  # None → 1/√d; 1.0 = torch nn.Embedding's N(0, 1)
+    trainer: TrainerConfig = dataclasses.field(
+        default_factory=lambda: TrainerConfig(batch_size=128, eval_batch_size=128,
+                                              epochs=100, lr=1e-3)
+    )
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedEmbeddingConfig:
+    """The item table of ``SASRecLarge``: (vocab_size, dim) rows. The port
+    runs it on one device in float32 only (``models/sasrec_large.py``); the
+    sharded lookups and the bf16 table are ROADMAP Queue 1 item 10."""
+
+    vocab_size: int = 10_000_000
+    dim: int = 64
+    ids_per_device_capacity: int = 8192
+    dtype: str = "float32"
+
+    def preferred_lookup(self, capacity_factor: float = 2.0) -> str:
+        """The reference's byte-crossover rule between its two sharded
+        lookups: all_to_all iff capacity_factor < 2·D/(D+1), else psum."""
+        return ("alltoall"
+                if capacity_factor < 2.0 * self.dim / (self.dim + 1.0)
+                else "psum")
+
+
+@dataclasses.dataclass(frozen=True)
+class SASRecLargeConfig:
+    """SASRec tower over a (V+1, dim) item table with sampled-BCE training
+    (`genrec_tpu/models/sasrec_large.py`)."""
+
+    max_len: int = 20
+    num_blocks: int = 2
+    num_heads: int = 2
+    mlp_layer: int = 256
+    dropout: float = 0.2
+    layernorm_eps: float = 1e-8
+    num_neg_samples: int = 64
+    loss_eps: float = 1e-24
+    topk_list: Tuple[int, ...] = (10, 100)
+    context_parallel_axis: Optional[str] = None
+    embedding: ShardedEmbeddingConfig = dataclasses.field(
+        default_factory=ShardedEmbeddingConfig)
+    trainer: TrainerConfig = dataclasses.field(
+        default_factory=lambda: TrainerConfig(batch_size=4096, lr=1e-3))
+    mesh: MeshConfig = dataclasses.field(
+        default_factory=lambda: MeshConfig(data_axis=-1, model_axis=2))
+
+
+def long_context_sasrec_config(max_len: int = 2048, dim: int = 64) -> SASRecLargeConfig:
+    """The reference's long-context configuration: 2048-item histories,
+    65,536 items at ``dim``, 2 blocks of 4 heads, batch 32, 64 negatives.
+    On one device its attention runs through the flash kernels
+    (``ops/attention.py``) once L ≥ 512 and no attention dropout is drawn."""
+    return SASRecLargeConfig(
+        max_len=max_len, num_blocks=2, num_heads=4, mlp_layer=4 * dim,
+        dropout=0.2, num_neg_samples=64, context_parallel_axis="ctx",
+        embedding=ShardedEmbeddingConfig(vocab_size=65536, dim=dim),
+        trainer=TrainerConfig(batch_size=32, lr=1e-3))

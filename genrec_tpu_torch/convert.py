@@ -1,14 +1,21 @@
 """Weight bridge from the reference's Flax parameter trees to the port.
 
-``tiger_params_from_flax`` takes the variables of a Flax ``TIGER`` (the
-dict ``TIGER.init`` returns, ``{"params": {"model": ...}}``) as a nested
-dict of numpy arrays and returns the state_dict of the port's
-``models.tiger.TIGER`` at the same config. The mapping:
+Each converter takes the variables of a Flax model (the dict its ``init``
+returns, ``{"params": ...}``) as a nested dict of numpy arrays and returns
+the state_dict of the port's module at the same config:
+``tiger_params_from_flax`` (``models.tiger.TIGER``),
+``sasrec_params_from_flax`` (``models.sasrec.SASRec``) and
+``sasrec_large_params_from_flax`` (``models.sasrec_large.SASRecLarge``).
+The mapping:
 
 - ``Dense.kernel`` (in, out) → ``Linear.weight`` (out, in), transposed;
-- ``Embed.embedding`` → ``Embedding.weight``;
-- RMSNorm ``weight`` and ``rel_embedding`` (buckets, heads) as they are;
-- Flax ``block_<i>`` → torch ``blocks.<i>``.
+- ``Embed.embedding`` → ``Embedding.weight``; LayerNorm ``scale`` →
+  ``weight``; RMSNorm ``weight``, ``rel_embedding`` (buckets, heads) and
+  SASRecLarge's raw ``item_table`` (V+1, D) as they are;
+- Flax ``block_<i>`` (T5) and ``blocks_<i>`` (SASRec) → torch ``blocks.<i>``;
+- SASRecBlock's auto-named ``Dense_0..5`` and ``LayerNorm_0/1`` → the
+  port's ``q``, ``k``, ``v``, ``out``, ``ff_in``, ``ff_out``, ``attn_norm``
+  and ``ff_norm``.
 
 It is strict: every Flax leaf is consumed, every torch entry is filled,
 and every shape is checked against the port's module; anything else raises.
@@ -21,7 +28,12 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from genrec_tpu_torch.configs import TIGERConfig
+from genrec_tpu_torch.configs import SASRecConfig, SASRecLargeConfig, TIGERConfig
+
+# SASRecBlock's Flax submodules are auto-named in call order (sasrec.py:48-68)
+_SASREC_BLOCK_NAMES = {"Dense_0": "q", "Dense_1": "k", "Dense_2": "v", "Dense_3": "out",
+                       "Dense_4": "ff_in", "Dense_5": "ff_out",
+                       "LayerNorm_0": "attn_norm", "LayerNorm_1": "ff_norm"}
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -35,35 +47,35 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def _torch_key(flax_path: str) -> str:
+def _torch_key(flax_path: str, rename: Optional[Mapping[str, str]] = None) -> str:
     """'params/model/encoder/block_0/self_attn/q/kernel' →
-    'model.encoder.blocks.0.self_attn.q.weight'."""
+    'model.encoder.blocks.0.self_attn.q.weight';
+    'params/blocks_1/LayerNorm_0/scale' with SASRec's ``rename`` →
+    'blocks.1.attn_norm.weight'."""
     parts = flax_path.split("/")
     if parts[0] != "params":
         raise KeyError(f"{flax_path}: Flax variables must sit under 'params'")
     out = []
     for p in parts[1:]:
-        if p.startswith("block_") and p[len("block_"):].isdigit():
-            out += ["blocks", p[len("block_"):]]
-        elif p in ("kernel", "embedding"):
+        stem, _, index = p.rpartition("_")
+        if stem in ("block", "blocks") and index.isdigit():
+            out += ["blocks", index]
+        elif p in ("kernel", "embedding", "scale"):
             out.append("weight")
         else:
-            out.append(p)
+            out.append((rename or {}).get(p, p))
     return ".".join(out)
 
 
-def tiger_params_from_flax(tree: Mapping, cfg: Optional[TIGERConfig] = None
-                           ) -> Dict[str, torch.Tensor]:
-    """Flax TIGER variables (nested numpy dict) → the port's TIGER state_dict."""
-    from genrec_tpu_torch.models.tiger import TIGER
-
-    cfg = cfg or TIGERConfig()
-    with torch.device("meta"):
-        expected = {k: v.shape for k, v in TIGER(cfg).state_dict().items()}
+def _state_from_flax(tree: Mapping, module: torch.nn.Module,
+                     rename: Optional[Mapping[str, str]] = None) -> Dict[str, torch.Tensor]:
+    """The strict mapping of the Flax ``tree`` onto ``module``'s state_dict
+    (``module`` may live on the meta device: only its shapes are read)."""
+    expected = {k: v.shape for k, v in module.state_dict().items()}
     leaves = _flatten(tree)
     state: Dict[str, torch.Tensor] = {}
     for path, arr in leaves.items():
-        key = _torch_key(path)
+        key = _torch_key(path, rename)
         if key not in expected:
             raise KeyError(f"Flax leaf {path} has no counterpart ({key}) in the port")
         if key in state:
@@ -80,3 +92,34 @@ def tiger_params_from_flax(tree: Mapping, cfg: Optional[TIGERConfig] = None
     if missing:
         raise KeyError(f"the Flax tree leaves these port parameters unfilled: {missing}")
     return state
+
+
+def tiger_params_from_flax(tree: Mapping, cfg: Optional[TIGERConfig] = None
+                           ) -> Dict[str, torch.Tensor]:
+    """Flax TIGER variables (nested numpy dict) → the port's TIGER state_dict."""
+    from genrec_tpu_torch.models.tiger import TIGER
+
+    with torch.device("meta"):
+        module = TIGER(cfg or TIGERConfig())
+    return _state_from_flax(tree, module)
+
+
+def sasrec_params_from_flax(tree: Mapping, item_num: int,
+                            cfg: Optional[SASRecConfig] = None) -> Dict[str, torch.Tensor]:
+    """Flax SASRec variables → the port's SASRec state_dict."""
+    from genrec_tpu_torch.models.sasrec import SASRec
+
+    with torch.device("meta"):
+        module = SASRec(item_num, cfg or SASRecConfig())
+    return _state_from_flax(tree, module, _SASREC_BLOCK_NAMES)
+
+
+def sasrec_large_params_from_flax(tree: Mapping, item_num: int, cfg: SASRecLargeConfig
+                                  ) -> Dict[str, torch.Tensor]:
+    """Flax SASRecLarge variables → the port's single-device SASRecLarge
+    state_dict (the raw ``item_table`` as it is)."""
+    from genrec_tpu_torch.models.sasrec_large import SASRecLarge
+
+    with torch.device("meta"):
+        module = SASRecLarge(item_num, cfg, use_sharded=False)
+    return _state_from_flax(tree, module, _SASREC_BLOCK_NAMES)

@@ -5,7 +5,9 @@ code file, interaction and TIGER-split parts.
   is dense item i (row 0 is padding), L RQ levels plus a collision-
   disambiguation digit (`RQ-VAE/infer.py:149-184`). Written beside it,
   ``*_mapping.json`` maps each row index to its code list.
-- ``InteractionData`` is the in-memory form of ``user_item_interact.h5``.
+- ``InteractionData`` is the in-memory form of ``user_item_interact.h5``
+  (``user_id`` int32, ``user_profile`` vlen str, ``item_id_list`` vlen int32;
+  read at `SASRec/data_vision.py:40-46`).
 - ``tiger/{train,test}_dataset.h5``: ``user_id`` int32, ``history`` /
   ``target`` vlen int32 of flattened offset tokens
   (`RQVAE-T5/data_vision.py:8-11`). h5py is imported only by the functions
@@ -61,6 +63,17 @@ class InteractionData:
             if len(seq):
                 mx = max(mx, int(np.max(seq)))
         return mx
+
+
+def read_interactions(path: str) -> InteractionData:
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        user_ids = f["user_id"][:].astype(np.int32)
+        user_profiles = [s.decode("utf-8") if isinstance(s, bytes) else str(s)
+                         for s in f["user_profile"][:]]
+        item_lists = [np.asarray(x, dtype=np.int32) for x in f["item_id_list"][:]]
+    return InteractionData(user_ids, user_profiles, item_lists)
 
 
 @dataclasses.dataclass

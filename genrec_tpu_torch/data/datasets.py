@@ -1,8 +1,12 @@
-"""Fixed-shape TIGER arrays and batch iterators: copies of
-``genrec_tpu/data/datasets.py``'s ``TigerArrays``, ``build_tiger_arrays``
-(its numpy path), ``num_batches`` and ``iterate_batches``.
+"""Fixed-shape SASRec and TIGER arrays and batch iterators: copies of
+``genrec_tpu/data/datasets.py``'s ``SASRecArrays``, ``build_sasrec_arrays``
+and ``build_tiger_arrays`` (their Python paths, not the native packer),
+``TigerArrays``, ``num_batches`` and ``iterate_batches``.
 
-Histories are left-padded with [0]*code_dim to ``max_len`` items
+SASRec train rows: input = seq[:-1], target = seq[1:], the last ``max_len``
+kept, left-padded with 0; test rows: leave-one-out (input = seq[:-1],
+target = seq[-1]) (`SASRec/data_vision.py:51-87`). TIGER histories are
+left-padded with [0]*code_dim to ``max_len`` items
 (`RQVAE-T5/data_vision.py:33-55`), labels padded with -100, attention
 mask = (token != 0). Every batch has a static shape; the last partial
 batch is padded and flagged by a ``valid`` mask.
@@ -11,11 +15,11 @@ batch is padded and flagged by a ``valid`` mask.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
-from genrec_tpu_torch.data.contracts import TigerSplit
+from genrec_tpu_torch.data.contracts import InteractionData, TigerSplit
 
 Batch = Dict[str, np.ndarray]
 
@@ -44,6 +48,53 @@ def iterate_batches(arrays: Batch, batch_size: int, *, shuffle: bool,
 
 def num_batches(n: int, batch_size: int, drop_last: bool = False) -> int:
     return n // batch_size if drop_last else -(-n // batch_size)
+
+
+@dataclasses.dataclass
+class SASRecArrays:
+    """Materialized fixed-shape SASRec split."""
+
+    inputs: np.ndarray    # (N, max_len) int32, pre-padded with 0
+    targets: np.ndarray   # train: (N, max_len); test: (N,) int32
+    item_num: int         # max item id over the corpus (SASRec/data_vision.py:38)
+
+    @property
+    def arrays(self) -> Batch:
+        return {"inputs": self.inputs, "targets": self.targets}
+
+
+def build_sasrec_arrays(data: InteractionData, max_len: int, mode: str,
+                        min_seq_len: int = 3) -> SASRecArrays:
+    """The train or test split of the sequences with at least ``min_seq_len`` items."""
+    inputs: List[np.ndarray] = []
+    targets: List = []
+    for seq in data.item_id_lists:
+        seq = np.asarray(seq, dtype=np.int64)
+        if len(seq) < min_seq_len:
+            continue
+        if mode == "train":
+            raw_in = seq[:-1][-max_len:]
+            raw_tg = seq[1:][-max_len:]
+            pad = max_len - len(raw_in)
+            inputs.append(np.concatenate([np.zeros(pad, np.int64), raw_in]))
+            targets.append(np.concatenate([np.zeros(pad, np.int64), raw_tg]))
+        elif mode == "test":
+            if len(seq) < 2:
+                inputs.append(np.zeros(max_len, np.int64))
+                targets.append(0)
+                continue
+            raw_in = seq[:-1][-max_len:]
+            pad = max_len - len(raw_in)
+            inputs.append(np.concatenate([np.zeros(pad, np.int64), raw_in]))
+            targets.append(int(seq[-1]))
+        else:
+            raise ValueError(mode)
+    return SASRecArrays(
+        inputs=np.stack(inputs).astype(np.int32),
+        targets=(np.stack(targets).astype(np.int32) if mode == "train"
+                 else np.asarray(targets, dtype=np.int32)),
+        item_num=data.max_item_id,
+    )
 
 
 @dataclasses.dataclass

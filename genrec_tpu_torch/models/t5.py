@@ -41,6 +41,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from genrec_tpu_torch.configs import T5ArchConfig
+from genrec_tpu_torch.models.layers import dropout as _dropout
 from genrec_tpu_torch.ops.attention import dot_product_attention
 from genrec_tpu_torch.ops.t5_attention import fused_t5_attention_flat, make_dropout_mask
 
@@ -68,15 +69,6 @@ def _drop_rate(module: nn.Module, generator: Optional[torch.Generator]) -> float
         raise ValueError("training-mode dropout draws its masks from a torch.Generator: "
                          "pass generator=..., or call .eval()")
     return rate
-
-
-def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
-    """Flax ``nn.Dropout``: keep each element with probability 1 − rate and
-    divide the kept ones by 1 − rate; the identity at rate 0."""
-    if rate == 0.0:
-        return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
-    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 def _normal_(t: torch.Tensor, std: float, generator: Optional[torch.Generator]):

@@ -1,25 +1,70 @@
 """Trained-model recommend functions of the port.
 
-Counterpart of ``genrec_tpu/serving/model_fn.py``'s ``tiger_model_fn``:
-load the best checkpoint and return a plain ``fn(history_ids, top_k) ->
-[item_id]``. The other recommend functions and the route table come with
-later slices.
+Counterpart of ``genrec_tpu/serving/model_fn.py``'s ``sasrec_model_fn``
+and ``tiger_model_fn``: load the best checkpoint and return a plain
+``fn(history_ids, top_k) -> [item_id]``. ``dense_t5_model_fn`` and the route
+table come with later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Union
 
 import numpy as np
 import torch
 
-from genrec_tpu_torch.configs import TIGERConfig
+from genrec_tpu_torch.configs import SASRecConfig, TIGERConfig
 from genrec_tpu_torch.data import tiger_tokens
-from genrec_tpu_torch.data.contracts import read_codes
+from genrec_tpu_torch.data.contracts import InteractionData, read_codes, read_interactions
 from genrec_tpu_torch.device import resolve_device
+from genrec_tpu_torch.models.sasrec import SASRec
 from genrec_tpu_torch.models.tiger import TIGER, generate, make_constraint
 from genrec_tpu_torch.train.checkpoint import restore_best
+
+
+def sasrec_model_fn(ckpt_dir: str, data: Union[str, InteractionData],
+                    cfg: Optional[SASRecConfig] = None,
+                    device=None) -> Optional[Callable[[List[int], int], List[int]]]:
+    """Serve the best SASRec checkpoint of ``ckpt_dir``.
+
+    ``data``, the training interactions (the H5 path or an
+    ``InteractionData``), fixes the item-id space: the checkpoint's table rows
+    are the dense 1-based ids of that corpus, so its size is derived as
+    training derived it. ``cfg`` must match the training config. Returns None
+    when no best checkpoint exists.
+
+    The returned fn left-pads or truncates the history to ``cfg.max_len``,
+    scores the full vocabulary with ``SASRec.predict`` and returns the top-k
+    item ids, without the padding row and without the history itself
+    (leave-one-out serving semantics, `SASRec/evaluate.py:27-37`).
+    """
+    dev = resolve_device(device)
+    if isinstance(data, str):
+        cfg = cfg or SASRecConfig(data_path=data)
+        data = read_interactions(data)
+    cfg = cfg or SASRecConfig()
+    item_num = data.max_item_id
+    state = restore_best(ckpt_dir)
+    if state is None:
+        return None
+    model = SASRec(item_num, cfg)
+    model.load_state_dict(state)
+    model.to(dev).eval()
+
+    @torch.no_grad()
+    def fn(history: List[int], top_k: int) -> List[int]:
+        ids = [int(i) for i in history if 0 < int(i) <= item_num][-cfg.max_len:]
+        seq = np.zeros((1, cfg.max_len), np.int64)
+        if ids:
+            seq[0, cfg.max_len - len(ids):] = ids
+        logits = model.predict(torch.from_numpy(seq).to(dev))[0].cpu().numpy().copy()
+        logits[0] = -np.inf                            # padding row
+        logits[np.asarray(ids, np.int64)] = -np.inf   # rated exclusion
+        k = min(int(top_k), item_num)
+        return [int(t) for t in np.argsort(-logits)[:k]]
+
+    return fn
 
 
 def tiger_model_fn(ckpt_dir: str, codes_path: str, cfg: Optional[TIGERConfig] = None,

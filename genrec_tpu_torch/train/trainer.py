@@ -41,7 +41,8 @@ from genrec_tpu_torch.utils.plotting import plot_loss_curves
 Batch = Dict[str, torch.Tensor]
 # loss_fn(model, batch, generator) -> (loss, aux); aux holds "sum_loss" and
 # "valid", whose sums give the per-valid-normalized epoch means. The
-# generator is None for the validation loss (eval mode, no dropout).
+# validation loss runs in eval mode (no dropout) with the same generator, from
+# which a loss may draw what else it samples (SASRec's negatives).
 LossFn = Callable[[nn.Module, Batch, Optional[torch.Generator]],
                   Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
@@ -70,16 +71,19 @@ class Trainer:
     def __init__(self, cfg: TrainerConfig, *, model: nn.Module, loss_fn: LossFn,
                  train_data: Dict[str, np.ndarray],
                  val_data: Optional[Dict[str, np.ndarray]] = None,
-                 logger_name: str = "genrec", device=None):
+                 logger_name: str = "genrec", device=None,
+                 eval_loss_fn: Optional[LossFn] = None):
         """``train_data`` / ``val_data``: numpy arrays with one row per
         sample, uploaded to ``device`` once (the card unless ``device="cpu"``)
         and kept there as ``self.train_data`` / ``self.val_data``. ``model``
         is moved there; the trainer updates it in place. ``loss_fn`` serves
-        training (model in ``.train()``) and validation (``.eval()``)."""
+        training (model in ``.train()``) and, unless ``eval_loss_fn`` is
+        given, validation (``.eval()``)."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.loss_fn = loss_fn
+        self.eval_loss_fn = eval_loss_fn or loss_fn
         n_train = len(next(iter(train_data.values())))
         self.opt = make_optimizer(self.model.parameters(), cfg,
                                   -(-n_train // cfg.batch_size))  # steps per epoch
@@ -154,16 +158,16 @@ class Trainer:
         return aux["sum_loss"].detach(), aux["valid"]
 
     @torch.no_grad()
-    def evaluate_loss(self) -> float:
+    def evaluate_loss(self, generator: Optional[torch.Generator] = None) -> float:
         """Per-valid-sample mean validation loss (SASRec/train.py:59-81 style),
-        summed on the device and read once."""
+        summed on the device and read once; ``generator`` goes to the loss."""
         self.model.eval()
         _, idx_mat = self._indices(self.val_data, self.cfg.eval_batch_size, shuffle=False,
                                    seed=0)
         total = torch.zeros((), device=self.device)
         valid = torch.zeros((), device=self.device)
         for idx in idx_mat:
-            _, aux = self.loss_fn(self.model, self.gather(self.val_data, idx), None)
+            _, aux = self.eval_loss_fn(self.model, self.gather(self.val_data, idx), generator)
             total += aux["sum_loss"]
             valid += aux["valid"]
         total, valid = float(total), float(valid)
@@ -217,7 +221,7 @@ class Trainer:
 
             if self.val_data is not None:
                 tv = time.perf_counter()
-                val_loss = self.evaluate_loss()
+                val_loss = self.evaluate_loss(generator)
                 phase["val"] += time.perf_counter() - tv
             else:
                 val_loss = avg_loss

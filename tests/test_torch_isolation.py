@@ -15,10 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from genrec_tpu_torch.configs import TIGERConfig
+from genrec_tpu_torch.configs import SASRecConfig, TIGERConfig
+from genrec_tpu_torch.data.contracts import InteractionData
 from genrec_tpu_torch.data.datasets import TigerArrays
+from genrec_tpu_torch.models.sasrec import SASRec
 from genrec_tpu_torch.models.tiger import TIGER
-from genrec_tpu_torch.pipelines import tiger_pipeline
+from genrec_tpu_torch.pipelines import sasrec_pipeline, tiger_pipeline
+from genrec_tpu_torch.train.checkpoint import save_best
 from genrec_tpu_torch.serving import model_fn
 from genrec_tpu_torch.train.trainer import Trainer
 
@@ -107,3 +110,26 @@ def test_training_entry_points_default_to_the_card(monkeypatch, tmp_path):
     trainer = Trainer(cfg.trainer, model=TIGER(cfg), loss_fn=tiger_pipeline.loss_fn,
                       train_data=arrays.arrays, device="cpu")
     assert next(trainer.model.parameters()).device == torch.device("cpu")
+
+
+def test_sasrec_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """``sasrec_pipeline.train`` / ``evaluate`` and ``sasrec_model_fn`` run on
+    the card unless given ``device="cpu"``, and raise without one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = SASRecConfig(d=8, num_blocks=1, max_len=6)
+    cfg = dataclasses.replace(cfg, trainer=dataclasses.replace(
+        cfg.trainer, ckpt_dir=str(tmp_path / "ckpt"), epochs=1))
+    data = InteractionData(np.arange(1, 4, dtype=np.int32), ["a", "b", "c"],
+                           [np.array([1, 2, 3, 4], np.int32)] * 3)
+    ckpt = str(tmp_path / "served")
+    save_best(SASRec(4, cfg).state_dict(), ckpt)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sasrec_pipeline.train(cfg, data)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sasrec_pipeline.evaluate(cfg, sasrec_pipeline.SASRecArtifacts({}, 4, None), data)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model_fn.sasrec_model_fn(ckpt, data, cfg)
+    fn = model_fn.sasrec_model_fn(ckpt, data, cfg, device="cpu")
+    assert len(fn([1], 2)) == 2
+    art = sasrec_pipeline.train(cfg, data, device="cpu")
+    assert next(iter(art.params.values())).device == torch.device("cpu")

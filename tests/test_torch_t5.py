@@ -68,8 +68,22 @@ def _t(a):
 
 
 def test_configs_compare_field_for_field():
+    from genrec_tpu import configs as jconfigs
+    from genrec_tpu_torch import configs as tconfigs
+
     jc, tc = JaxTIGERConfig(), TIGERConfig()
     assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
+    for name in ("SASRecConfig", "ShardedEmbeddingConfig", "SASRecLargeConfig"):
+        j, t = getattr(jconfigs, name)(), getattr(tconfigs, name)()
+        assert type(t).__name__ == name and dataclasses.asdict(j) == dataclasses.asdict(t)
+    for args in ((), (4096, 16)):
+        assert (dataclasses.asdict(jconfigs.long_context_sasrec_config(*args))
+                == dataclasses.asdict(tconfigs.long_context_sasrec_config(*args)))
+    for c in (0.5, 1.9, 2.0):
+        for dim in (1, 64):
+            emb = dict(dim=dim)
+            assert (jconfigs.ShardedEmbeddingConfig(**emb).preferred_lookup(c)
+                    == tconfigs.ShardedEmbeddingConfig(**emb).preferred_lookup(c))
 
 
 def test_converter_fills_every_parameter(flax_params, port):
