@@ -17,7 +17,10 @@ which asserts; any failure exits non-zero and prints no result:
    the serving shapes and small edge cases within 1e-5 max abs (f32, another
    summation order); the T5 backward at the three train shapes of
    ``TIGERConfig()`` at batch 256 and edge cases within 1e-4·max|plain| +
-   1e-5 (dbias sums by atomics in an order that changes between runs); the
+   1e-5, bit-identical between two calls (dbias by an ordered reduction, no
+   atomics), with its shared memory and blocks per SM and, stage by stage,
+   where its distance from the f64 backward comes from; its dbias reduction
+   kernel bit-equal to its plain version; the
    flash forward (out and lse within 1e-5) and its dq and dk/dv kernels
    (within 1e-4·max|plain| + 1e-5) at the long-context SASRec shapes (B·H
    128 at L=2048, 16 at L=4096, causal) and edge cases (D=64 with a bias,
@@ -66,13 +69,16 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-5          # kernel vs plain version, max abs, f32
-BWD_REL = 1e-4      # backward: max abs <= BWD_REL * max|plain| + TOL (f32, other
-                    # summation orders, dbias by atomics in a varying order)
+BWD_REL = 1e-4      # backward: max abs <= BWD_REL * max|plain| + TOL (3xTF32 products, an
+                    # online f32 delta, other summation orders: kernel #2 measured within
+                    # 2.8e-6 of the max on an H100, where one TF32 pass on the scores gives
+                    # 1.5e-3 against f64; see bwd_error_sources)
 GEN_TOL = 1e-4      # batched generate scores, card vs CPU
 LOSS_REL = 1e-6     # long-context step loss (~53, a sum of B·L·65 terms), card vs f64:
                     # relative, a few f32 epsilons (1.2e-7)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+TF32X3_OPS_PER_S = 495e12 / 3  # H100 SXM dense TF32 tensor cores, three passes a product
 N_ITEMS = 700
 TOP_K = 10
 BATCH = 256
@@ -271,10 +277,12 @@ def phase_kernels():
 
 
 def bwd_case(name, h, b, lq, lk, d, *, causal=False, bias=True, pad=True, causal_in_bias=False,
-             fully_masked=False, dropout=True, seed=0):
+             fully_masked=False, dropout=True, bias_offset=0.0, seed=0):
     """Inputs of one backward case (the forward's inputs plus an output
     gradient), on the card. ``causal_in_bias`` folds the causal −1e9 into the
-    bias, as the decoder passes it."""
+    bias, as the decoder passes it; ``bias_offset`` is added to every bias
+    value (the softmax does not change; exp of an unshifted score would
+    overflow)."""
     name, a = attention_case(name, h, b, lq, lk, d, causal=causal, bias=bias, pad=pad,
                              fully_masked=fully_masked, dropout=dropout, seed=seed)
     r = np.random.default_rng(seed + 1000)
@@ -283,17 +291,24 @@ def bwd_case(name, h, b, lq, lk, d, *, causal=False, bias=True, pad=True, causal
         row = torch.arange(lq, device="cuda")[:, None]
         col = torch.arange(lk, device="cuda")[None, :]
         a["pos_bias"] = (a["pos_bias"] + torch.where(col > row, -1e9, 0.0)).contiguous()
+    if bias_offset:
+        a["pos_bias"] = (a["pos_bias"] + bias_offset).contiguous()
     return name, a
 
 
-def bwd_bound_ms(a) -> tuple:
+def bwd_bound_ms(a) -> dict:
     """Least time on the card for the backward's work: q, k, v, do, the bias,
     the key mask (int32) and the dropout mask read once, dq, dk, dv and dbias
-    written once, at the HBM rate; against the f32 operations per score at
-    the f32 rate outside the tensor cores: 10·D for the five products
-    (q·k and do·v recomputed, ds·k, dsᵀ·q, (p·dm)ᵀ·do), 7 for the softmax
-    recompute (as the forward), 4 for ds = p·(dp − Σ dp·p), 2 more with a
-    dropout mask (dp·dm, p·dm) and 1 for the dbias sum."""
+    written once, at the HBM rate; against the operations per score: 10·D
+    for the five products (q·k and do·v recomputed, ds·k, dsᵀ·q, (p·dm)ᵀ·do),
+    7 for the softmax recompute (as the forward), 4 for ds = p·(dp − Σ dp·p),
+    2 more with a dropout mask (dp·dm, p·dm) and 1 for the dbias sum.
+
+    Two bounds: ``"f32"`` counts every operation at the f32 rate outside the
+    tensor cores (the rule of the other kernels' rows); ``"tf32x3"`` counts
+    the products at the 3xTF32 tensor-core rate (495/3 TFLOP/s), as kernel
+    #2 computes them, and the rest at the f32 rate, the two pipes
+    overlapping. Each is (ms, what bounds it)."""
     qf, kf = a["qf"], a["kf"]
     hb, lq, d = qf.shape
     lk = kf.shape[1]
@@ -302,13 +317,19 @@ def bwd_bound_ms(a) -> tuple:
     for key in ("kv_mask", "dropout_mask"):
         if a[key] is not None:
             nbytes += a[key].numel() * 4
-    per_score = 10 * d + 7 + 4
+    rest = 7 + 4
     if a["pos_bias"] is not None:
         nbytes += 2 * a["pos_bias"].numel() * 4  # bias in, dbias out
-        per_score += 1
+        rest += 1
     if a["dropout_mask"] is not None:
-        per_score += 2
-    return _bound(nbytes, hb * lq * lk * per_score)
+        rest += 2
+    scores = hb * lq * lk
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    times = {"bytes": t_bytes, "tensor cores": 10 * d * scores / TF32X3_OPS_PER_S * 1e3,
+             "f32 operations": rest * scores / F32_OPS_PER_S * 1e3}
+    by = max(times, key=times.get)
+    return {"f32": _bound(nbytes, scores * (10 * d + rest)),
+            "tf32x3": (times[by], "bytes" if by == "bytes" else "operations")}
 
 
 def sdpa_backward(a):
@@ -343,9 +364,172 @@ def sdpa_backward(a):
     return grads, None
 
 
+TRAIN_SHAPES = ("enc_train", "dec_self_train", "cross_train")
+
+
+def _tf32(x):
+    """f32 rounded to TF32 (10 mantissa bits, to nearest, ties away from
+    zero), as ``cvt.rna.tf32.f32`` and kernel #2's ``to_tf32`` round it."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _bmm_tf32x3(x, y):
+    """x·y as kernel #2 takes a product: each operand split into a TF32 hi
+    and lo, lo·hi + hi·lo + hi·hi summed in f32 (cuBLAS f32 products of TF32
+    values, which are exact; TF32 is off)."""
+    xh, yh = _tf32(x), _tf32(y)
+    xl, yl = _tf32(x - xh), _tf32(y - yh)
+    return torch.bmm(xl, yh) + torch.bmm(xh, yl) + torch.bmm(xh, yh)
+
+
+def _scores_f64_from_products(a, qk, dov):
+    """(ds, p·dm) of the plain backward in f64 from given score products
+    q·kᵀ and do·vᵀ: the port's own ``_bwd_scores`` with the products as q
+    and do against identity keys and values, so every step after the two
+    products is exact."""
+    from genrec_tpu_torch.ops import t5_attention as ta
+
+    hb, lq, lk = qk.shape
+    eye = torch.eye(lk, dtype=torch.float64, device=qk.device).expand(hb, lk, lk)
+    bias = None if a["pos_bias"] is None else a["pos_bias"].double()
+    return ta._bwd_scores(qk.double(), eye, eye, a["h"], bias, a["kv_mask"], dov.double(),
+                          a["causal"], a["dropout_mask"])
+
+
+def _online_delta_f32(s, dp):
+    """delta = Σ_j p·dp·dm per query row as kernel #2's pass 1 takes it, in
+    f32: lane t of a quad walks keys 2t and 2t + 1 of each 8-key tile with a
+    running max m, l = Σ e^(s−m) and u = Σ e^(s−m)·dp (rescaled when m
+    grows), then the four lanes combine (xor 1, then xor 2) and delta =
+    u / max(l, 1e-30). ``s`` holds the scores with their −1e9 terms and
+    ``dp`` the products times the dropout mask, (H·B, Lq, Lk) f32."""
+    hb, lq, lk = s.shape
+    lkp = -(-lk // 16) * 16
+    s = torch.nn.functional.pad(s, (0, lkp - lk), value=-float("inf")).view(hb, lq, -1, 4, 2)
+    dp = torch.nn.functional.pad(dp, (0, lkp - lk)).view(hb, lq, -1, 4, 2)
+    m = torch.full((hb, lq, 4), -torch.finfo(torch.float32).max, device=s.device)
+    l, u = torch.zeros_like(m), torch.zeros_like(m)
+    for n in range(lkp // 8):
+        x, y = s[:, :, n], dp[:, :, n]
+        mx = torch.maximum(m, x.amax(dim=-1))
+        scale = torch.exp(m - mx)
+        e = torch.exp(x - mx[..., None])
+        l = l * scale + e[..., 0] + e[..., 1]
+        u = u * scale + e[..., 0] * y[..., 0] + e[..., 1] * y[..., 1]
+        m = mx
+    for off in (1, 2):
+        perm = torch.arange(4, device=s.device) ^ off
+        mo, lo, uo = m[..., perm], l[..., perm], u[..., perm]
+        mx = torch.maximum(m, mo)
+        a, b = torch.exp(m - mx), torch.exp(mo - mx)
+        l, u, m = l * a + lo * b, u * a + uo * b, mx
+    return u[..., 0] / torch.clamp(l[..., 0], min=1e-30)
+
+
+BWD_GRADS = ("dq", "dk", "dv", "dbias")
+
+
+def bwd_error_sources(a, got) -> dict:
+    """Where kernel #2's distance from the exact backward comes from: per
+    gradient, max|x − exact| / max|exact| against the f64 backward, for the
+    kernel's gradients ``got``, the plain version in f32, and the f64
+    backward with one stage taken as the kernel takes it:
+    ``scores_tf32x3`` q·kᵀ and do·vᵀ in 3xTF32 (``scores_tf32_one_pass``:
+    one TF32 pass), the rest exact; ``outputs_tf32x3`` the exact ds and p·dm
+    rounded to f32, then ds·k, dsᵀ·q and (p·dm)ᵀ·do in 3xTF32 and dbias as
+    the batch-order f32 sum of the reduction kernel; ``delta_online_f32``
+    delta = Σ p·dp·dm from the kernel's online pass in f32, the rest exact."""
+    from genrec_tpu_torch.ops import t5_attention as ta
+
+    h = a["h"]
+    q, k, v, do = (a[x] for x in ("qf", "kf", "vf", "do"))
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    f64 = lambda x, y: torch.bmm(x.double(), y.double())  # noqa: E731
+    tf32x3 = lambda x, y: _bmm_tf32x3(x.float().contiguous(), y.float().contiguous())  # noqa: E731
+
+    def grads(ds, pd, mm, batch_sum):
+        hb, lq, lk = ds.shape
+        dbias = (None if a["pos_bias"] is None
+                 else batch_sum(ds.view(h, hb // h, lq, lk)))
+        return (mm(ds, k), mm(ds.transpose(1, 2), q), mm(pd.transpose(1, 2), do), dbias)
+
+    ds, pd = _scores_f64_from_products(a, f64(q, kt), f64(do, vt))
+    exact = grads(ds, pd, f64, lambda x: x.sum(dim=1))
+
+    def rel(xs):
+        return {n: (x.double() - e).abs().max().item() / e.abs().max().item()
+                for n, x, e in zip(BWD_GRADS, xs, exact) if e is not None}
+
+    out = {"kernel": rel(got),
+           "plain_f32": rel(ta.t5_attention_bwd_reference(
+               q, k, v, h, a["pos_bias"], a["kv_mask"], do, causal=a["causal"],
+               dropout_mask=a["dropout_mask"])),
+           "outputs_tf32x3": rel(grads(ds.float(), pd.float(), tf32x3,
+                                       lambda x: ta.dbias_reduce_reference(x.contiguous())))}
+    # delta from the kernel's online pass in f32 over its f32 scores; p, dp exact
+    hb, lq, lk = ds.shape
+    s32 = _bmm_tf32x3(q, kt).view(h, hb // h, lq, lk)
+    if a["pos_bias"] is not None:
+        s32 = s32 + a["pos_bias"][:, None]
+    if a["causal"]:
+        row = torch.arange(lq, device=q.device)[:, None]
+        col = torch.arange(lk, device=q.device)[None, :]
+        s32 = s32 + torch.where(col > row + (lk - lq), -1e9, 0.0)
+    if a["kv_mask"] is not None:
+        s32 = s32 + ((1.0 - a["kv_mask"].float()) * -1e9)[None, :, None, :]
+    dm = a["dropout_mask"]
+    dp32 = _bmm_tf32x3(do, vt) * (1.0 if dm is None else dm)
+    delta = _online_delta_f32(s32.reshape(hb, lq, lk), dp32).double()[..., None]
+    del s32, dp32
+    eye = torch.eye(lk, dtype=torch.float64, device=q.device).expand(hb, lk, lk)
+    p = ta._probs(f64(q, kt), eye, h, None if a["pos_bias"] is None else a["pos_bias"].double(),
+                  a["kv_mask"], a["causal"])
+    dp = f64(do, vt) * (1.0 if dm is None else dm.double())
+    out["delta_online_f32"] = rel(grads(p * (dp - delta), pd, f64, lambda x: x.sum(dim=1)))
+    del p, dp, delta
+    one_pass = lambda x, y: torch.bmm(_tf32(x), _tf32(y))  # noqa: E731
+    for key, mm in (("scores_tf32x3", _bmm_tf32x3), ("scores_tf32_one_pass", one_pass)):
+        ds, pd = _scores_f64_from_products(a, mm(q, kt), mm(do, vt))
+        out[key] = rel(grads(ds, pd, f64, lambda x: x.sum(dim=1)))
+    del ds, pd, exact
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dbias_reduce():
+    """The backward's dbias reduction kernel against its plain version (the
+    same in-order sum, so bit-equal) on a random scratch buffer of the
+    decoder shape, (4 heads, 256 batch rows, 156, 156); times and bound."""
+    from genrec_tpu_torch.ops import t5_attention as ta
+
+    r = np.random.default_rng(21)
+    part = torch.from_numpy(r.normal(size=(4, BATCH, 156, 156)).astype(np.float32)).cuda()
+    got, want = ta.t5_attention_dbias_reduce(part), ta.dbias_reduce_reference(part)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), "dbias reduction: kernel and plain in-order sum differ"
+    err = (got - want).abs().max().item()
+    fns = [lambda: ta.t5_attention_dbias_reduce(part), lambda: ta.dbias_reduce_reference(part),
+           lambda: part.sum(dim=1)]
+    ms, plain_ms, library_ms = [cuda_ms(f, 20) for f in fns]
+    dev = [device_ms(f, 10) for f in fns]
+    nbytes = (part.numel() + want.numel()) * 4
+    bound_ms, bound_by = _bound(nbytes, part.numel() - want.numel())
+    print(f"[kernel] t5_attention_dbias_reduce part={tuple(part.shape)} bit-equal to the plain "
+          f"in-order sum | per call (CUDA events): ms={ms:.5f} plain_ms={plain_ms:.5f} "
+          f"library_ms={library_ms:.5f} (sum over dim 1) | device only (profiler): "
+          f"ms={dev[0]:.5f} plain_ms={dev[1]:.5f} library_ms={dev[2]:.5f} | "
+          f"bound_ms={bound_ms:.6f} ({bound_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, device_ms=dev[0],
+                plain_device_ms=dev[1], library_device_ms=dev[2])
+
+
 def phase_bwd_kernels():
     """Kernel #2 against its plain version on the card, at the three train
-    shapes of TIGERConfig() at batch 256 and at edge cases; times and bound."""
+    shapes of TIGERConfig() at batch 256 and at edge cases; times and bounds;
+    bit-identical results from two calls at the encoder and decoder shapes;
+    shared memory and blocks per SM; at the train shapes with dropout, the
+    distance from the f64 backward and where it comes from."""
     from genrec_tpu_torch.ops import t5_attention as ta
 
     ta.load_bwd_kernel()
@@ -364,6 +548,10 @@ def phase_bwd_kernels():
         bwd_case("fully_masked_rows", 2, 3, 12, 10, 8, fully_masked=True, seed=16),
         bwd_case("b1_causal_156", 4, 1, 156, 156, 16, causal=True, pad=False, seed=17),
         bwd_case("smem_over_48KB_no_bias", 1, 2, 64, 200, 16, bias=False, seed=18),
+        # padding query rows (156 -> 160) under a bias that e^s would overflow
+        bwd_case("bias+100_lq156", 2, 3, 156, 156, 16, bias_offset=100.0, seed=19),
+        bwd_case("d128_80", 2, 3, 80, 80, 128, seed=20),  # A fragments reloaded
+        bwd_case("d72_lq!=lk_causal", 2, 3, 40, 56, 72, causal=True, seed=21),  # ragged D
     ]
     results = {}
     for name, a in cases:
@@ -393,20 +581,45 @@ def phase_bwd_kernels():
             lib_note = why or "SDPA backward, bias gradient through the additive mask"
             if lib is not None:
                 fns.append(lib)
+        if name in ("enc_train", "dec_self_train"):
+            again = ta.t5_attention_bwd(*args, **kw)
+            same = [g is None or torch.equal(g, h) for g, h in zip(got, again)]
+            assert all(same), f"{name}: two calls differ in (dq, dk, dv, dbias): {same}"
+            print(f"[kernel] t5_attention_bwd {name}: dq, dk, dv and dbias bit-identical "
+                  f"between two calls")
         iters = 20
         ms, plain_ms, library_ms = [cuda_ms(f, iters) for f in fns] + [None] * (3 - len(fns))
         dev = [device_ms(f, 10) for f in fns] + [None] * (3 - len(fns))
-        bound_ms, bound_by = bwd_bound_ms(a)
+        bounds = bwd_bound_ms(a)
+        (bound_ms, bound_by), (f32_ms, f32_by) = bounds["tf32x3"], bounds["f32"]
         results[name] = dict(max_rel_err=rel, max_abs_err=max(abs_errs), ms=ms,
-                             plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, library_ms=library_ms, device_ms=dev[0],
+                             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             bound_ms_f32=f32_ms, library_ms=library_ms, device_ms=dev[0],
                              plain_device_ms=dev[1], library_device_ms=dev[2])
         print(f"[kernel] t5_attention_bwd {name} q={tuple(a['qf'].shape)} "
               f"lk={a['kf'].shape[1]} dropout={a['dropout_mask'] is not None} "
               f"max_err/max|ref|={rel:.3e} | per call (CUDA events): ms={ms:.5f} "
               f"plain_ms={plain_ms:.5f} library_ms={library_ms} | device only (profiler): "
               f"ms={dev[0]:.5f} plain_ms={dev[1]:.5f} library_ms={dev[2]} | "
-              f"bound_ms={bound_ms:.6f} ({bound_by}) | library: {lib_note}")
+              f"bound_ms={bound_ms:.6f} ({bound_by}, 3xTF32 products), f32-SIMT "
+              f"{f32_ms:.6f} ({f32_by}) | library: {lib_note}")
+        if name in TRAIN_SHAPES:
+            lq, lk, d = a["qf"].shape[1], a["kf"].shape[1], a["qf"].shape[2]
+            smem, per_sm = ta.bwd_occupancy(lq, lk, d)
+            results[name].update(smem_bytes=smem, blocks_per_sm=per_sm)
+            print(f"[kernel] t5_attention_bwd {name}: {smem} bytes of shared memory per block, "
+                  f"{per_sm} blocks resident per SM")
+            src = bwd_error_sources(a, got)
+            results[name]["error_sources"] = src
+            print(f"[kernel] t5_attention_bwd {name} against the f64 backward, max|x - f64| / "
+                  f"max|f64| of " + ", ".join(src["kernel"]) + ": " + "; ".join(
+                      f"{key} " + " ".join(f"{e:.3e}" for e in errs.values())
+                      for key, errs in src.items()))
+    for name in TRAIN_SHAPES:
+        r0 = results[f"{name}_no_dropout"]
+        print(f"[kernel] t5_attention_bwd {name} without dropout: kernel {r0['ms']:.5f} ms "
+              f"(device {r0['device_ms']:.5f}) against SDPA backward {r0['library_ms']} ms "
+              f"(device {r0['library_device_ms']})")
     return results
 
 
@@ -886,7 +1099,7 @@ def phase_serving(tmp):
     rng = np.random.default_rng(0)
 
     # ---- the main path: counts at 0 just before, read just after ----
-    ta.launches = ta.bwd_launches = 0
+    ta.launches = ta.bwd_launches = ta.dbias_reduce_launches = 0
     fn = tiger_model_fn(ckpt, codes_path, device="cuda")
     histories = [[], [int(i) for i in rng.integers(1, N_ITEMS + 1, size=3)],
                  [int(i) for i in rng.choice(np.arange(1, N_ITEMS + 1), 20, replace=False)]]
@@ -921,9 +1134,10 @@ def phase_serving(tmp):
         tokens, scores = generate(model, ii_d, am_d, num_beams=BEAMS, constraint=constraint)
     torch.cuda.synchronize()
     seqs_s = reps * BATCH / (time.perf_counter() - t0)
-    launches, bwd_launches = ta.launches, ta.bwd_launches
+    launches, bwd_launches, reduce_launches = (ta.launches, ta.bwd_launches,
+                                               ta.dbias_reduce_launches)
     # ---- end of the main path ----
-    assert bwd_launches == 0, bwd_launches  # serving runs no backward
+    assert bwd_launches == reduce_launches == 0, (bwd_launches, reduce_launches)  # no backward
     print(f"[generate] B={BATCH} beams={BEAMS} trie: {seqs_s:.1f} seqs/s (host clock, "
           f"{reps} batches after one warm-up)")
     print(f"[launches] t5_attention_fwd: {launches} on the main path "
@@ -1092,7 +1306,7 @@ def phase_train(tmp, tr, te, codes):
     val_batches = num_batches(len(te.input_ids), BATCH)
 
     # ---- the main path: counts at 0 just before, read just after ----
-    ta.launches = ta.bwd_launches = 0
+    ta.launches = ta.bwd_launches = ta.dbias_reduce_launches = 0
     art = tiger_pipeline.train(cfg, tr, te, device="cuda")
     res = art.result
     cfg2 = dataclasses.replace(cfg, trainer=dataclasses.replace(
@@ -1100,7 +1314,7 @@ def phase_train(tmp, tr, te, codes):
     art2 = tiger_pipeline.train(cfg2, tr, te, device="cuda")
     metrics = tiger_pipeline.evaluate(cfg2, art2, te, codes, device="cuda")
     torch.cuda.synchronize()
-    fwd, bwd = ta.launches, ta.bwd_launches
+    fwd, bwd, reduce = ta.launches, ta.bwd_launches, ta.dbias_reduce_launches
     # ---- end of the main path ----
 
     losses = res.train_losses + art2.result.train_losses
@@ -1119,8 +1333,10 @@ def phase_train(tmp, tr, te, codes):
     want_fwd = 6 * steps + 6 * (TRAIN_EPOCHS + 1) * val_batches + 2 * val_batches
     print(f"[launches] training path: t5_attention_fwd {fwd} (want 6 x {steps} steps + 6 x "
           f"{(TRAIN_EPOCHS + 1) * val_batches} val batches + 2 x {val_batches} generate "
-          f"batches = {want_fwd}), t5_attention_bwd {bwd} (want 6 x {steps} = {6 * steps})")
-    assert fwd == want_fwd and bwd == 6 * steps, (fwd, bwd)
+          f"batches = {want_fwd}), t5_attention_bwd {bwd} (want 6 x {steps} = {6 * steps}), "
+          f"t5_attention_dbias_reduce {reduce} (want 4 x {steps} = {4 * steps}: the encoder's "
+          f"and the decoder's self-attention, whose bias learns)")
+    assert fwd == want_fwd and bwd == 6 * steps and reduce == 4 * steps, (fwd, bwd, reduce)
 
     ph = res.phase_seconds
     steady_steps = (res.epochs_run - 1) * steps_per_epoch
@@ -1144,8 +1360,8 @@ def phase_train(tmp, tr, te, codes):
               f"per step on the host clock without the profiler: {100 * busy:.1f}% busy")
     print(f"[train] peak device memory over the profiled steps: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return dict(fwd=fwd, bwd=bwd, examples_s=res.steady_examples_per_sec, ms_step=ms_step,
-                busy=busy)
+    return dict(fwd=fwd, bwd=bwd, reduce=reduce, examples_s=res.steady_examples_per_sec,
+                ms_step=ms_step, busy=busy)
 
 
 def profile_window(label, work, reps: int = 3, top_n: int = 6):
@@ -1232,6 +1448,7 @@ def main() -> int:
     t_start = time.perf_counter()
     results = phase_kernels()
     bwd = phase_bwd_kernels()
+    reduce = phase_dbias_reduce()
     flash = phase_flash()
     tr, te, codes = train_corpus()
     phase_train_step_parity(tr)
@@ -1269,17 +1486,35 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in bwd.values()),
         "max_rel_err": max(r["max_rel_err"] for r in bwd.values()),
         "ms": dec["ms"], "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
-        "bound_by": dec["bound_by"], "library_ms": dec0["library_ms"],
+        "bound_by": dec["bound_by"], "bound_ms_f32": dec["bound_ms_f32"],
+        "library_ms": dec0["library_ms"], "ms_no_dropout": dec0["ms"],
         "shape": "decoder self-attention: q/k/v/do (4*256, 156, 16) f32, bias (4, 156, 156) "
-                 "with the causal mask folded in, f32 dropout mask (1024, 156, 156)",
+                 "with the causal mask folded in, f32 dropout mask (1024, 156, 156); ms "
+                 "includes the dbias reduction",
         "library_note": "SDPA backward at the same shape without the dropout mask "
-                        "(no library call takes a given one); the kernel there: "
-                        f"{dec0['ms']:.5f} ms",
-        "device_ms": dec["device_ms"],
+                        "(no library call takes a given one), beside ms_no_dropout; "
+                        "bound_ms counts the products at the 3xTF32 tensor-core rate, "
+                        "bound_ms_f32 every operation at the f32 SIMT rate",
+        "device_ms": dec["device_ms"], "device_ms_no_dropout": dec0["device_ms"],
+        "library_device_ms": dec0["library_device_ms"],
+        "smem_bytes": dec["smem_bytes"], "blocks_per_sm": dec["blocks_per_sm"],
+        "dbias_reduce_launches": train["reduce"], "dbias_reduce_ms": reduce["ms"],
+        "dbias_reduce_device_ms": reduce["device_ms"],
         **{f"{k}_{m}": bwd[k][m] for k in ("enc_train", "cross_train")
-           for m in ("ms", "device_ms", "plain_ms", "bound_ms")},
-        **{f"{k}_no_dropout_library_ms": bwd[f"{k}_no_dropout"]["library_ms"]
-           for k in ("enc_train", "cross_train")},
+           for m in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_ms_f32", "blocks_per_sm")},
+        **{f"{k}_no_dropout_{m}": bwd[f"{k}_no_dropout"][m] for k in ("enc_train", "cross_train")
+           for m in ("ms", "device_ms", "library_ms", "library_device_ms")},
+    }
+    reduce_record = {
+        "name": "t5_attention_dbias_reduce", "route": "cuda",
+        "source": "genrec_tpu_torch/csrc/t5_attention_bwd.cu",
+        "replaces": "genrec_tpu/ops/t5_attention.py:157 (the dbias sum of _bwd_kernel)",
+        "launches": train["reduce"], "launches_by_path": {"serve": 0, "train": train["reduce"]},
+        "max_abs_err": reduce["max_abs_err"], "ms": reduce["ms"], "plain_ms": reduce["plain_ms"],
+        "bound_ms": reduce["bound_ms"], "bound_by": reduce["bound_by"],
+        "library_ms": reduce["library_ms"], "device_ms": reduce["device_ms"],
+        "shape": "scratch (4, 256, 156, 156) f32 -> dbias (4, 156, 156)",
+        "library_note": "one sum over dim 1 (another summation order)",
     }
     print(f"[summary] TIGER: {req_s:.2f} requests/s, {seqs_s:.1f} seqs/s, "
           f"{train['examples_s']:.1f} train examples/s, {train['ms_step']:.2f} ms/train step, "
@@ -1288,7 +1523,7 @@ def main() -> int:
           f"B={LC_B}, {lc_train['ms_step']:.2f} ms/train step at B={LC_B}, "
           f"{lc_train['examples_s']:.1f} examples/s, busy share {lc_train['busy']}; "
           f"{time.perf_counter() - t_start:.1f} s")
-    kernels = [fwd_record, bwd_record] + flash_records(flash, lc_serve, lc_train)
+    kernels = [fwd_record, bwd_record, reduce_record] + flash_records(flash, lc_serve, lc_train)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,4 +1,4 @@
-// Fused T5 attention backward for Hopper (sm_90a), f32.
+// Fused T5 attention backward for Hopper (sm_90a), f32 in and out.
 //
 // Replaces the Pallas TPU kernel `_bwd_kernel` of genrec_tpu/ops/t5_attention.py
 // (reached through `_bwd_call`). It computes the same function, not the same
@@ -7,188 +7,603 @@
 // forward's order (q.k, + pos_bias, + causal, + key mask), and then:
 //
 //   dp[i, j] = (do[i] . v[j]) * dm[i, j]               (dm = 1 without dropout)
-//   ds[i, j] = p[i, j] * (dp[i, j] - sum_j' dp[i, j'] * p[i, j'])
+//   ds[i, j] = p[i, j] * (dp[i, j] - delta[i]),  delta[i] = sum_j dp[i, j] * p[i, j]
 //   dq[i]    = sum_j ds[i, j] * k[j]
 //   dk[j]    = sum_i ds[i, j] * q[i]
 //   dv[j]    = sum_i p[i, j] * dm[i, j] * do[i]
 //   dbias[h, i, j] = sum_b ds[h*B + b, i, j]           (if asked for)
 //
-// dbias route: ATOMICS. The TPU kernel summed dbias over the batch by running
-// its grid's batch axis in order; CUDA blocks run in no order, so each block
-// atomicAdds its (Lq, Lk) ds tile into a (H, Lq, Lk) f32 buffer that the wrapper
-// zeroes. The order of the sum over the batch therefore changes from run to
-// run, and so do the last bits of dbias: the tolerance says so.
+// Bound on this card: at the TIGER training shapes (L = 80 or 156, D = 16) the
+// five products (q.k and do.v recomputed, ds.k, ds.q, (p*dm).do) are 10*D flops
+// per score; the softmax recompute, the masks and ds are about 15 more f32
+// operations per score, each exp among them; the f32 dropout mask, when given,
+// is the largest input (100 MB at the decoder shape). The design:
 //
-// Bound on this card: at the TIGER training shapes (L = 80 or 156, D = 16) each
-// score costs about 10*D f32 operations (q.k and do.v recomputed, ds.k, ds.q and
-// p.do) against q/k/v/do/dq/dk/dv rows of D floats, so the f32 (non-tensor-core)
-// arithmetic bounds it, just ahead of the bytes of the f32 dropout mask when one
-// is given (PERF.md reckons both). Design, simple first:
-//   - one block per flat row hb, kWarps warps, holding that row's whole (Lq, Lk)
-//     ds tile and p*dm tile in dynamic shared memory (2 x 97 KB at 156 x 156, so
-//     above 48 KB through cudaFuncSetAttribute; the wrapper refuses shapes beyond
-//     the card's 227 KB);
-//   - phase 1, one warp per query row: K and V staged in shared memory with a
-//     padded row stride; lanes split the keys; softmax and the row sum of dp*p by
-//     warp shuffles; dq of the row from the ds row and the staged K;
-//   - phase 2, the K/V buffers re-staged with Q and dO; one thread per (key, feature)
-//     pair sums the columns of the ds and p*dm tiles into dk and dv;
-//   - f32 FMA throughout, accurate expf (no fast-math).
-// Making it fast (wgmma, fewer shared-memory loads per FMA, a narrower or
-// in-kernel Philox dropout mask, a deterministic dbias reduction) is later work.
+//   - one block of kWarps warps per flat row hb. Q, K, V and dO of the row are
+//     staged in shared memory with cp.async at a padded row stride (8*ND + 4
+//     floats, which makes every fragment load below free of bank conflicts);
+//     rows are padded to a multiple of 16 and features to 8, 16, 32, 64 or 128
+//     with zeros, so a ragged edge is masked, not refused. No (Lq, Lk) tile is
+//     kept: 54,400 bytes at 156 x 156 x 16, so four blocks share an SM.
+//   - phase A, a warp per 16-row query strip. Pass 1 walks the keys 8 at a time
+//     and keeps an online max m, sum l = sum e^(s-m) and u = sum e^(s-m)*dp, so
+//     delta = u / l comes from the same pass as the softmax statistics (the
+//     forward's output is not needed). Pass 2 recomputes p, dp and ds and adds
+//     ds.K into dq in registers; dq is written once. m, 1/l and delta go to
+//     shared memory; a padding query row stores m = FLT_MAX and 1/l = 0, so its
+//     p is exactly 0 whatever the bias value its clamped loads read.
+//   - phase B, a warp per 16-key strip: s^T = K.Q^T and dp^T from the stored
+//     statistics; dk += ds^T.Q and dv += (p*dm)^T.dO in registers, written once.
+//   - every product on the tensor cores: mma.sync m16n8k8 in TF32 with the
+//     3xTF32 split (a = hi + lo, hi = cvt.rna(a); lo.hi + hi.lo + hi.hi summed in
+//     f32), which keeps f32 accuracy: one TF32 pass would be off by about 4e-4
+//     of the largest value. The accumulator fragment of s or ds is fed back as
+//     the A operand of the next product with its 8 keys taken in the order the
+//     fragment holds them (2t, 2t+1 on lane t), and the B operand is read in the
+//     same order, so no shuffle is needed. mma.sync, not wgmma: the tiles are 16
+//     deep and at most 156 long, where 64-row tiles would waste 19% on padding.
+//     A warp holds the A fragments of its strip in registers up to D = 64;
+//     at D = 128 they would take all of them, and are reloaded from shared
+//     memory at each use.
+//   - softmax, masks and the dropout multiply in f32 with accurate expf. Tiles
+//     are never skipped: a masked score is -1e9 added, as in the forward, and
+//     only the padding past the last key is -inf.
+//   - what remains bounds it by instructions issued: at D = 16 the three inner
+//     loops (pass 1, pass 2, phase B) issue about 1,000 warp instructions per
+//     16 x 8 tile of scores, 54 of them mma (genrec_tpu_torch/tools/sass_loops.py
+//     counts them in the SASS), so the inner loops' loads carry no guards (only the
+//     dbias stores check the ragged edge): the TF32 rounding is two integer
+//     operations, the bias and dropout values are read a tile at
+//     a time at indices clamped into the data (a padding key scores -inf through
+//     the key-mask row, a padding query row has p = 0), and the statistics of a
+//     row are one float4.
+//   - dbias WITHOUT ATOMICS: each block writes its ds tile to a scratch buffer
+//     (H, B, Lq, Lk), and t5_attention_dbias_reduce sums that over the batch
+//     axis in order. Every
+//     output has one owner and a fixed summation order, so dq, dk, dv and dbias
+//     are bit-identical between two calls on the same inputs, as the TPU kernel's
+//     are (it summed dbias over an ordered grid axis).
 
 #include <cuda_runtime.h>
 
+#include <cfloat>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
 
 namespace {
 
-constexpr int kWarps = 16;
+constexpr int kWarps = 5;  // 160-row strips split evenly at L = 80 and 156
 constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e9f;
+constexpr int kMaxD = 128;
 constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block may use on H100
+constexpr int kReduceThreads = 256;
+
+__host__ __device__ inline int pad16(int n) { return (n + 15) / 16 * 16; }
+
+// 8-wide feature steps: D padded to 8, 16, 32, 64 or 128.
+int nd_of(int d) { return d <= 8 ? 1 : d <= 16 ? 2 : d <= 32 ? 4 : d <= 64 ? 8 : 16; }
 
 size_t smem_floats(int lq, int lk, int d) {
-  const size_t lmax = lq > lk ? lq : lk;
-  return 2 * lmax * (d + 1)           // K and V (phase 1), then Q and dO (phase 2)
-         + lk                         // additive key mask
-         + 2 * (size_t)lq * lk        // ds tile, p*dm tile
-         + (size_t)kWarps * 2 * d;    // per-warp q row and do row
+  const size_t stride = 8 * nd_of(d) + 4;
+  const size_t lqp = pad16(lq), lkp = pad16(lk);
+  return 2 * (lqp + lkp) * stride  // Q and dO, K and V
+         + 4 * lqp                 // per query row: m, 1/l, delta (a float4)
+         + lkp;                    // additive key mask, -inf past the last key
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+struct Params {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* pos_bias;
+  const int32_t* kv_mask;
+  const float* dmask;
+  const float* dout;
+  float* dq;
+  float* dk;
+  float* dv;
+  float* dbias_part;
+  int batch, lq, lk, d, causal;
+  int vec16;  // q, k, v, dO staged 16 bytes at a time
+  int pair;   // bias, dropout mask and dbias scratch read and written 2 floats at a time
+};
+
+// ---- TF32 tensor-core helpers ----
+
+// cvt.rna.tf32.f32 of a finite x: the low 13 bits rounded off to nearest,
+// ties away from zero, in two integer operations (the cvt instruction is
+// emulated with checks for inf and NaN; every operand here is finite).
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+// x = hi + lo, each a TF32 operand. lo is rounded like hi but keeps its low 13
+// bits, which the tensor cores ignore.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
 }
 
-__global__ void __launch_bounds__(kThreads)
-t5_attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ pos_bias,
-                        const int32_t* __restrict__ kv_mask, const float* __restrict__ dmask,
-                        const float* __restrict__ dout, float* __restrict__ dq,
-                        float* __restrict__ dk, float* __restrict__ dv,
-                        float* __restrict__ dbias, int batch, int lq, int lk, int d,
-                        int causal) {
-  extern __shared__ float smem[];
-  const int ds = d + 1;
-  const int lmax = lq > lk ? lq : lk;
-  float* ra = smem;                 // lmax * ds: K, then Q
-  float* rb = ra + lmax * ds;       // lmax * ds: V, then dO
-  float* madd = rb + lmax * ds;     // lk
-  float* tds = madd + lk;           // lq * lk: ds
-  float* tpd = tds + lq * lk;       // lq * lk: p * dm
-  float* rows = tpd + lq * lk;      // kWarps * 2 * d
+struct FragA {  // 16 x 8, row-major: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+  uint32_t hi[4], lo[4];
+};
+struct FragB {  // 8 x 8: (k = t, n = g), (k = t + 4, n = g)
+  uint32_t hi[2], lo[2];
+};
 
-  const int hb = blockIdx.x;
-  const int h = hb / batch;
-  const int b = hb % batch;
-  const size_t kv_off = (size_t)hb * lk * d;
-  const size_t q_off = (size_t)hb * lq * d;
-  for (int i = threadIdx.x; i < lk * d; i += kThreads) {
-    const int r = i / d, c = i % d;
-    ra[r * ds + c] = k[kv_off + i];
-    rb[r * ds + c] = v[kv_off + i];
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a.b in 3xTF32, the small terms first. kSwap orders the two small terms
+// by b's split instead of a's, so that K.Q^T (phase B) sums the same terms in
+// the same order as Q.K^T (phase A).
+template <bool kSwap>
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, const FragB& b) {
+  if (kSwap) {
+    mma(c, a.hi, b.lo);
+    mma(c, a.lo, b.hi);
+  } else {
+    mma(c, a.lo, b.hi);
+    mma(c, a.hi, b.lo);
   }
-  for (int j = threadIdx.x; j < lk; j += kThreads)
-    madd[j] = kv_mask ? (1.0f - (float)kv_mask[(size_t)b * lk + j]) * kNegInf : 0.0f;
+  mma(c, a.hi, b.hi);
+}
+
+// A fragment of rows r0..r0+15, features k0..k0+7 of a staged matrix.
+__device__ __forceinline__ void load_a(FragA& f, const float* x, int stride, int r0, int k0,
+                                       int g, int t) {
+  const float* p = x + (r0 + g) * stride + k0 + t;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[8 * stride], f.hi[1], f.lo[1]);
+  split(p[4], f.hi[2], f.lo[2]);
+  split(p[8 * stride + 4], f.hi[3], f.lo[3]);
+}
+
+// A warp holds the A fragments of its 16-row strip over all ND feature steps
+// in registers up to D = 64. At D = 128, where two strips' fragments would take
+// all of a thread's registers, it reloads each from shared memory at its use.
+template <int ND>
+constexpr int kHeld = ND <= 8 ? ND : 1;
+
+template <int ND>
+__device__ __forceinline__ void hold(FragA (&f)[kHeld<ND>], const float* x, int r0, int g,
+                                     int t) {
+  if constexpr (ND <= 8) {
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) load_a(f[kk], x, 8 * ND + 4, r0, 8 * kk, g, t);
+  }
+}
+
+// Feature step kk of a strip: held, or reloaded.
+template <int ND>
+__device__ __forceinline__ FragA step(const FragA (&f)[kHeld<ND>], const float* x, int r0,
+                                      int kk, int g, int t) {
+  if constexpr (ND <= 8) {
+    return f[kk];
+  } else {
+    FragA a;
+    load_a(a, x, 8 * ND + 4, r0, 8 * kk, g, t);
+    return a;
+  }
+}
+
+// B fragment of X.Y^T: rows n0..n0+7 of Y as columns, features k0..k0+7.
+__device__ __forceinline__ void load_bt(FragB& f, const float* y, int stride, int n0, int k0,
+                                        int g, int t) {
+  const float* p = y + (n0 + g) * stride + k0 + t;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[4], f.hi[1], f.lo[1]);
+}
+
+// B fragment of C.Y, where C is an accumulator fragment over rows n0..n0+7 of
+// Y: features c0..c0+7 of Y, its rows in the order the fragment holds them
+// (lane t: rows 2t and 2t + 1).
+__device__ __forceinline__ void load_b(FragB& f, const float* y, int stride, int n0, int c0,
+                                       int g, int t) {
+  const float* p = y + (n0 + 2 * t) * stride + c0 + g;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[stride], f.hi[1], f.lo[1]);
+}
+
+// An accumulator fragment (16 x 8: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8,
+// 2t + 1)) as an A operand whose column t is column 2t and column t + 4 is 2t + 1.
+__device__ __forceinline__ void a_from_c(FragA& f, const float (&c)[4]) {
+  split(c[0], f.hi[0], f.lo[0]);
+  split(c[2], f.hi[1], f.lo[1]);
+  split(c[1], f.hi[2], f.lo[2]);
+  split(c[3], f.hi[3], f.lo[3]);
+}
+
+// ---- scores and masks ----
+
+// The forward's score of query i and key j from q.k, the bias value and the
+// key-mask term (-inf past the last key), added in the forward's order.
+__device__ __forceinline__ float score(float qk, float bias, float madd, const Params& P, int i,
+                                       int j) {
+  float s = qk + bias;
+  if (P.causal && j > i + P.lk - P.lq) s += kNegInf;
+  return s + madd;
+}
+
+// Values j and j + 1 of the row at `row` (an offset into x) of the bias or the
+// dropout mask. Indices are clamped into the row: past the last key the score
+// is -inf and p is 0, so the (finite) value read there does not count, and no
+// load needs a guard.
+__device__ __forceinline__ void load2(float& a, float& b, const float* x, int row, int j,
+                                      const Params& P) {
+  if (P.pair) {  // j even, lk even
+    const float2 v = __ldg(reinterpret_cast<const float2*>(x + (row + min(j, P.lk - 2))));
+    a = v.x, b = v.y;
+  } else {
+    a = __ldg(x + (row + min(j, P.lk - 1)));
+    b = __ldg(x + (row + min(j + 1, P.lk - 1)));
+  }
+}
+
+// ds of rows[r] by keys j and j + 1 into this block's dbias scratch.
+__device__ __forceinline__ void store_ds(float* part, const float (&ds)[4], const Params& P,
+                                         const int (&rows)[2], int j) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = rows[r];
+    if (i >= P.lq) continue;
+    float* dst = part + (size_t)i * P.lk + j;
+    if (P.pair) {
+      if (j < P.lk) *reinterpret_cast<float2*>(dst) = make_float2(ds[2 * r], ds[2 * r + 1]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        if (j + c < P.lk) dst[c] = ds[2 * r + c];
+    }
+  }
+}
+
+// ---- staging ----
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src));
+}
+
+// rows x d floats from global into shared memory at row stride `stride`.
+__device__ __forceinline__ void stage(float* dst, const float* src, int rows, int d, int stride,
+                                      bool vec16) {
+  if (vec16) {
+    const int per_row = d / 4;
+    for (int idx = threadIdx.x; idx < rows * per_row; idx += kThreads) {
+      const int r = idx / per_row, c = (idx - r * per_row) * 4;
+      cp_async16(dst + r * stride + c, src + (size_t)r * d + c);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * d; idx += kThreads) {
+      const int r = idx / d, c = idx - r * d;
+      cp_async4(dst + r * stride + c, src + idx);
+    }
+  }
+}
+
+// Zeros where a staged matrix has no data: rows >= rows, features >= d.
+__device__ __forceinline__ void zero_pad(float* dst, int rows, int rows_p, int d, int dp,
+                                         int stride) {
+  for (int idx = threadIdx.x; idx < rows_p * dp; idx += kThreads) {
+    const int r = idx / dp, c = idx - r * dp;
+    if (r >= rows || c >= d) dst[r * stride + c] = 0.0f;
+  }
+}
+
+// ---- phase A: a warp per 16-row query strip: softmax statistics, delta, dq ----
+
+template <int ND>
+__device__ __forceinline__ void phase_a(const Params& P, const float* sq, const float* sdo,
+                                        const float* sk, const float* sv, float4* stats,
+                                        const float* madd, const float* bias_h,
+                                        const float* dm_hb, float* dq_hb, float* part, int lqp,
+                                        int lkp, int warp, int g, int t) {
+  constexpr int S = 8 * ND + 4;
+  for (int r0 = warp * 16; r0 < lqp; r0 += kWarps * 16) {  // warp-uniform
+    FragA qa[kHeld<ND>], oa[kHeld<ND>];
+    hold<ND>(qa, sq, r0, g, t);
+    hold<ND>(oa, sdo, r0, g, t);
+    const int rows[2] = {r0 + g, r0 + g + 8};
+    // the offsets of the rows of the bias and the dropout mask; padding rows
+    // read the last row (their p is 0), so the loads need no guard
+    const int roff[2] = {min(rows[0], P.lq - 1) * P.lk, min(rows[1], P.lq - 1) * P.lk};
+
+    // pass 1: online max m, l = sum e^(s-m), u = sum e^(s-m) * dp. m starts
+    // finite, so padding keys (-inf) give e = 0 and never a NaN.
+    float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.0f, 0.0f}, u[2] = {0.0f, 0.0f};
+    for (int n0 = 0; n0 < lkp; n0 += 8) {
+      const int j = n0 + 2 * t;
+      float bv[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dm[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (bias_h) load2(bv[2 * r], bv[2 * r + 1], bias_h, roff[r], j, P);
+        if (dm_hb) load2(dm[2 * r], dm[2 * r + 1], dm_hb, roff[r], j, P);
+      }
+      const float2 mk = *reinterpret_cast<const float2*>(madd + j);
+      float s[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int kk = 0; kk < ND; ++kk) {
+        FragB b;
+        load_bt(b, sk, S, n0, 8 * kk, g, t);
+        mma3<false>(s, step<ND>(qa, sq, r0, kk, g, t), b);
+        load_bt(b, sv, S, n0, 8 * kk, g, t);
+        mma3<false>(dp, step<ND>(oa, sdo, r0, kk, g, t), b);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float s0 = score(s[2 * r], bv[2 * r], mk.x, P, rows[r], j);
+        const float s1 = score(s[2 * r + 1], bv[2 * r + 1], mk.y, P, rows[r], j + 1);
+        const float mx = fmaxf(m[r], fmaxf(s0, s1));
+        const float scale = mx > m[r] ? expf(m[r] - mx) : 1.0f;  // expf(0) is 1
+        const float e0 = expf(s0 - mx), e1 = expf(s1 - mx);
+        l[r] = l[r] * scale + e0 + e1;
+        u[r] = u[r] * scale + e0 * (dp[2 * r] * dm[2 * r]) + e1 * (dp[2 * r + 1] * dm[2 * r + 1]);
+        m[r] = mx;
+      }
+    }
+    // the four lanes of a quad hold one row's keys: combine, identically on each
+    float inv_l[2], delta[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float mo = __shfl_xor_sync(0xffffffffu, m[r], off);
+        const float lo = __shfl_xor_sync(0xffffffffu, l[r], off);
+        const float uo = __shfl_xor_sync(0xffffffffu, u[r], off);
+        const float mx = fmaxf(m[r], mo);
+        const float a = expf(m[r] - mx), b = expf(mo - mx);
+        l[r] = __fadd_rn(__fmul_rn(l[r], a), __fmul_rn(lo, b));  // commutative: no FMA
+        u[r] = __fadd_rn(__fmul_rn(u[r], a), __fmul_rn(uo, b));
+        m[r] = mx;
+      }
+      const float den = fmaxf(l[r], 1e-30f);
+      // a padding row's p is exactly 0: e^(s - FLT_MAX) is 0 for any finite s
+      // (an m of 0 with a bias above 88 would make it inf * 0 = NaN in phase B)
+      const bool real = rows[r] < P.lq;
+      inv_l[r] = real ? 1.0f / den : 0.0f;
+      delta[r] = real ? u[r] / den : 0.0f;
+      if (!real) m[r] = FLT_MAX;
+      if (t == 0) stats[rows[r]] = make_float4(m[r], inv_l[r], delta[r], 0.0f);
+    }
+
+    // pass 2: p, dp, ds; dq += ds.K; ds into the dbias scratch
+    float acc[ND][4];
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nd][e] = 0.0f;
+    for (int n0 = 0; n0 < lkp; n0 += 8) {
+      const int j = n0 + 2 * t;
+      float bv[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dm[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (bias_h) load2(bv[2 * r], bv[2 * r + 1], bias_h, roff[r], j, P);
+        if (dm_hb) load2(dm[2 * r], dm[2 * r + 1], dm_hb, roff[r], j, P);
+      }
+      const float2 mk = *reinterpret_cast<const float2*>(madd + j);
+      float s[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int kk = 0; kk < ND; ++kk) {
+        FragB b;
+        load_bt(b, sk, S, n0, 8 * kk, g, t);
+        mma3<false>(s, step<ND>(qa, sq, r0, kk, g, t), b);
+        load_bt(b, sv, S, n0, 8 * kk, g, t);
+        mma3<false>(dp, step<ND>(oa, sdo, r0, kk, g, t), b);
+      }
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float sc = score(s[e], bv[e], (e & 1) ? mk.y : mk.x, P, rows[r], j + (e & 1));
+        const float p = expf(sc - m[r]) * inv_l[r];
+        ds[e] = p * (dp[e] * dm[e] - delta[r]);
+      }
+      if (part) store_ds(part, ds, P, rows, j);
+      FragA a;
+      a_from_c(a, ds);
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        FragB b;
+        load_b(b, sk, S, n0, 8 * nd, g, t);
+        mma3<false>(acc[nd], a, b);
+      }
+    }
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = rows[e >> 1], c = 8 * nd + 2 * t + (e & 1);
+        if (i < P.lq && c < P.d) dq_hb[(size_t)i * P.d + c] = acc[nd][e];
+      }
+  }
+}
+
+// ---- phase B: a warp per 16-key strip: dk, dv ----
+
+template <int ND>
+__device__ __forceinline__ void phase_b(const Params& P, const float* sq, const float* sdo,
+                                        const float* sk, const float* sv, const float4* stats,
+                                        const float* madd, const float* bias_h,
+                                        const float* dm_hb, float* dk_hb, float* dv_hb, int lqp,
+                                        int lkp, int warp, int g, int t) {
+  constexpr int S = 8 * ND + 4;
+  for (int c0 = warp * 16; c0 < lkp; c0 += kWarps * 16) {  // warp-uniform
+    FragA ka[kHeld<ND>], va[kHeld<ND>];
+    hold<ND>(ka, sk, c0, g, t);
+    hold<ND>(va, sv, c0, g, t);
+    const int keys[2] = {c0 + g, c0 + g + 8};
+    const float mk[2] = {madd[keys[0]], madd[keys[1]]};
+    // the keys' columns of the bias and the dropout mask, clamped into the
+    // data as in phase A
+    const int kcol[2] = {min(keys[0], P.lk - 1), min(keys[1], P.lk - 1)};
+    float dka[ND][4], dva[ND][4];
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[nd][e] = dva[nd][e] = 0.0f;
+    for (int n0 = 0; n0 < lqp; n0 += 8) {  // 8 queries at a time
+      float bv[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dm[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int off = min(n0 + 2 * t + (e & 1), P.lq - 1) * P.lk;
+        if (bias_h) bv[e] = __ldg(bias_h + (kcol[e >> 1] + off));
+        if (dm_hb) dm[e] = __ldg(dm_hb + (kcol[e >> 1] + off));
+      }
+      float s[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int kk = 0; kk < ND; ++kk) {
+        FragB b;
+        load_bt(b, sq, S, n0, 8 * kk, g, t);
+        mma3<true>(s, step<ND>(ka, sk, c0, kk, g, t), b);
+        load_bt(b, sdo, S, n0, 8 * kk, g, t);
+        mma3<true>(dp, step<ND>(va, sv, c0, kk, g, t), b);
+      }
+      const float4 st[2] = {stats[n0 + 2 * t], stats[n0 + 2 * t + 1]};  // m, 1/l, delta
+      float ds[4], pd[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float4 q = st[e & 1];
+        const float sc = score(s[e], bv[e], mk[r], P, n0 + 2 * t + (e & 1), keys[r]);
+        const float p = expf(sc - q.x) * q.y;
+        ds[e] = p * (dp[e] * dm[e] - q.z);
+        pd[e] = p * dm[e];
+      }
+      FragA a;
+      a_from_c(a, ds);
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        FragB b;
+        load_b(b, sq, S, n0, 8 * nd, g, t);
+        mma3<false>(dka[nd], a, b);
+      }
+      a_from_c(a, pd);
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        FragB b;
+        load_b(b, sdo, S, n0, 8 * nd, g, t);
+        mma3<false>(dva[nd], a, b);
+      }
+    }
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = keys[e >> 1], c = 8 * nd + 2 * t + (e & 1);
+        if (j < P.lk && c < P.d) {
+          dk_hb[(size_t)j * P.d + c] = dka[nd][e];
+          dv_hb[(size_t)j * P.d + c] = dva[nd][e];
+        }
+      }
+  }
+}
+
+// Four blocks an SM at D <= 16 (the registers of 20 warps: 96 a thread); one
+// block of one flat row hb.
+template <int ND>
+__global__ void __launch_bounds__(kThreads, ND <= 2 ? 4 : (ND == 4 ? 2 : 1))
+t5_attention_bwd_kernel(const Params P) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int S = 8 * ND + 4;
+  const int lqp = pad16(P.lq), lkp = pad16(P.lk);
+  float* sq = smem;
+  float* sdo = sq + lqp * S;
+  float* sk = sdo + lqp * S;
+  float* sv = sk + lkp * S;
+  float4* stats = reinterpret_cast<float4*>(sv + lkp * S);  // lqp: m, 1/l, delta
+  float* madd = reinterpret_cast<float*>(stats + lqp);
+
+  const int hb = blockIdx.x, h = hb / P.batch, b = hb - h * P.batch;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t q_off = (size_t)hb * P.lq * P.d, kv_off = (size_t)hb * P.lk * P.d;
+  const float* bias_h = P.pos_bias ? P.pos_bias + (size_t)h * P.lq * P.lk : nullptr;
+  const float* dm_hb = P.dmask ? P.dmask + (size_t)hb * P.lq * P.lk : nullptr;
+  float* part = P.dbias_part ? P.dbias_part + (size_t)hb * P.lq * P.lk : nullptr;
+
+  zero_pad(sq, P.lq, lqp, P.d, 8 * ND, S);  // the staging below never writes these
+  zero_pad(sdo, P.lq, lqp, P.d, 8 * ND, S);
+  zero_pad(sk, P.lk, lkp, P.d, 8 * ND, S);
+  zero_pad(sv, P.lk, lkp, P.d, 8 * ND, S);
+  stage(sq, P.q + q_off, P.lq, P.d, S, P.vec16);
+  stage(sdo, P.dout + q_off, P.lq, P.d, S, P.vec16);
+  stage(sk, P.k + kv_off, P.lk, P.d, S, P.vec16);
+  stage(sv, P.v + kv_off, P.lk, P.d, S, P.vec16);
+  asm volatile("cp.async.commit_group;");
+  for (int j = threadIdx.x; j < lkp; j += kThreads)
+    madd[j] = j >= P.lk  ? -INFINITY
+              : P.kv_mask ? (1.0f - (float)P.kv_mask[(size_t)b * P.lk + j]) * kNegInf
+                          : 0.0f;
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
   __syncthreads();
 
-  // ---- phase 1: one warp per query row: p, ds, p*dm and dq ----
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* qw = rows + warp * 2 * d;
-  float* dow = qw + d;
-  const int shift = lk - lq;
-  for (int row = warp; row < lq; row += kWarps) {  // warp-uniform
-    const size_t qrow = (size_t)hb * lq + row;
-    for (int c = lane; c < d; c += 32) {
-      qw[c] = q[qrow * d + c];
-      dow[c] = dout[qrow * d + c];
-    }
-    __syncwarp();
+  phase_a<ND>(P, sq, sdo, sk, sv, stats, madd, bias_h, dm_hb, P.dq + q_off, part, lqp, lkp,
+              warp, g, t);
+  __syncthreads();  // the statistics of every query row
+  phase_b<ND>(P, sq, sdo, sk, sv, stats, madd, bias_h, dm_hb, P.dk + kv_off, P.dv + kv_off,
+              lqp, lkp, warp, g, t);
+}
 
-    const float* brow = pos_bias ? pos_bias + ((size_t)h * lq + row) * lk : nullptr;
-    const float* drow = dmask ? dmask + qrow * lk : nullptr;
-    float* srow = tds + row * lk;
-    float* prow = tpd + row * lk;
-    float mx = -INFINITY;
-    for (int j = lane; j < lk; j += 32) {
-      const float* kr = ra + j * ds;
-      float s = 0.0f;
-      for (int c = 0; c < d; ++c) s = fmaf(qw[c], kr[c], s);
-      if (brow) s += brow[j];
-      if (causal && j > row + shift) s += kNegInf;
-      if (kv_mask) s += madd[j];
-      srow[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-
-    float sum = 0.0f;
-    for (int j = lane; j < lk; j += 32) {
-      const float e = expf(srow[j] - mx);
-      srow[j] = e;
-      sum += e;
-    }
-    const float denom = fmaxf(warp_sum(sum), 1e-30f);
-
-    float dot = 0.0f;  // sum_j dp * p
-    for (int j = lane; j < lk; j += 32) {
-      const float p = srow[j] / denom;
-      const float* vr = rb + j * ds;
-      float dpd = 0.0f;
-      for (int c = 0; c < d; ++c) dpd = fmaf(dow[c], vr[c], dpd);
-      const float dp = drow ? dpd * drow[j] : dpd;
-      dot += dp * p;
-      srow[j] = p;
-      prow[j] = dp;
-    }
-    dot = warp_sum(dot);
-
-    for (int j = lane; j < lk; j += 32) {
-      const float p = srow[j];
-      srow[j] = p * (prow[j] - dot);
-      prow[j] = drow ? p * drow[j] : p;
-    }
-    __syncwarp();
-
-    for (int c = lane; c < d; c += 32) {
-      float acc = 0.0f;
-      for (int j = 0; j < lk; ++j) acc = fmaf(srow[j], ra[j * ds + c], acc);
-      dq[qrow * d + c] = acc;
-    }
-    __syncwarp();  // the next row overwrites qw and dow
+// dbias[h, e] = sum over chunks c, in order, of part[h, c, e].
+__global__ void __launch_bounds__(kReduceThreads)
+t5_attention_dbias_reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                 int nchunk, int n, int total) {
+  const int idx = blockIdx.x * kReduceThreads + threadIdx.x;
+  if (idx >= total) return;
+  const int h = idx / n, e = idx - h * n;
+  const float* p = part + (size_t)h * nchunk * n + e;
+  float acc = 0.0f;
+  int c = 0;
+  for (; c + 8 <= nchunk; c += 8) {  // eight loads in flight, then their sum in order
+    float x[8];
+#pragma unroll
+    for (int w = 0; w < 8; ++w) x[w] = p[(size_t)(c + w) * n];
+#pragma unroll
+    for (int w = 0; w < 8; ++w) acc += x[w];
   }
-  __syncthreads();
+  for (; c < nchunk; ++c) acc += p[(size_t)c * n];
+  out[idx] = acc;
+}
 
-  // ---- phase 2: Q and dO over K and V; columns of the tiles into dk and dv ----
-  for (int i = threadIdx.x; i < lq * d; i += kThreads) {
-    const int r = i / d, c = i % d;
-    ra[r * ds + c] = q[q_off + i];
-    rb[r * ds + c] = dout[q_off + i];
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < lk * d; idx += kThreads) {
-    const int j = idx / d, c = idx % d;
-    float ak = 0.0f, av = 0.0f;
-    for (int i = 0; i < lq; ++i) {
-      ak = fmaf(tds[i * lk + j], ra[i * ds + c], ak);
-      av = fmaf(tpd[i * lk + j], rb[i * ds + c], av);
-    }
-    dk[kv_off + idx] = ak;
-    dv[kv_off + idx] = av;
-  }
-  if (dbias) {
-    float* dbh = dbias + (size_t)h * lq * lk;
-    for (int idx = threadIdx.x; idx < lq * lk; idx += kThreads) atomicAdd(dbh + idx, tds[idx]);
-  }
+template <int ND>
+cudaError_t prepare(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(t5_attention_bwd_kernel<ND>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int ND>
+cudaError_t launch(const Params& P, int grid, size_t smem, cudaStream_t stream) {
+  const cudaError_t e = prepare<ND>(smem);
+  if (e != cudaSuccess) return e;
+  t5_attention_bwd_kernel<ND><<<grid, kThreads, smem, stream>>>(P);
+  return cudaGetLastError();
+}
+
+template <int ND>
+int occupancy(size_t smem) {
+  cudaError_t e = prepare<ND>(smem);
+  int n = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, t5_attention_bwd_kernel<ND>,
+                                                      kThreads, smem);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
+bool aligned(const void* p, uintptr_t bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
 }  // namespace
@@ -200,34 +615,65 @@ size_t t5_attention_bwd_smem_bytes(int lq, int lk, int d) {
   return smem_floats(lq, lk, d) * sizeof(float);
 }
 
+// Blocks of the backward kernel resident on one SM at (lq, lk, d), from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor; minus the CUDA error on failure.
+int t5_attention_bwd_blocks_per_sm(int lq, int lk, int d) {
+  const size_t smem = t5_attention_bwd_smem_bytes(lq, lk, d);
+  if (smem > kMaxSmem || d <= 0 || d > kMaxD) return -static_cast<int>(cudaErrorInvalidValue);
+  switch (nd_of(d)) {
+    case 1: return occupancy<1>(smem);
+    case 2: return occupancy<2>(smem);
+    case 4: return occupancy<4>(smem);
+    case 8: return occupancy<8>(smem);
+    default: return occupancy<16>(smem);
+  }
+}
+
 const char* t5_attention_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 // q/dout/dq: (hb, lq, d), k/v/dk/dv: (hb, lk, d), pos_bias: (hb / batch, lq, lk) or
-// NULL, kv_mask: (batch, lk) int32 or NULL, dmask: (hb, lq, lk) or NULL, dbias:
-// (hb / batch, lq, lk) ZEROED by the caller, or NULL when not wanted. All f32
-// except kv_mask, contiguous, on the device. Launches on `stream` and returns
+// NULL, kv_mask: (batch, lk) int32 or NULL, dmask: (hb, lq, lk) or NULL,
+// dbias_part: (hb / batch, batch, lq, lk) scratch for each flat row's ds (need
+// not be zeroed), or NULL when no dbias is wanted. All f32 except kv_mask,
+// contiguous, on the device; d <= 128. Launches on `stream` and returns
 // cudaGetLastError().
 int t5_attention_bwd(const void* q, const void* k, const void* v, const void* pos_bias,
                      const void* kv_mask, const void* dmask, const void* dout, void* dq,
-                     void* dk, void* dv, void* dbias, int hb, int batch, int lq, int lk,
+                     void* dk, void* dv, void* dbias_part, int hb, int batch, int lq, int lk,
                      int d, int causal, void* stream) {
   const size_t smem = t5_attention_bwd_smem_bytes(lq, lk, d);
   if (smem > kMaxSmem || hb <= 0 || batch <= 0 || hb % batch != 0 || lq <= 0 || lk <= 0 ||
-      d <= 0)
+      d <= 0 || d > kMaxD)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        t5_attention_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
+  Params P{static_cast<const float*>(q),      static_cast<const float*>(k),
+           static_cast<const float*>(v),      static_cast<const float*>(pos_bias),
+           static_cast<const int32_t*>(kv_mask), static_cast<const float*>(dmask),
+           static_cast<const float*>(dout),   static_cast<float*>(dq),
+           static_cast<float*>(dk),           static_cast<float*>(dv),
+           static_cast<float*>(dbias_part),   batch, lq, lk, d, causal,
+           d % 4 == 0 && aligned(q, 16) && aligned(k, 16) && aligned(v, 16) && aligned(dout, 16),
+           lk % 2 == 0 && aligned(pos_bias, 8) && aligned(dmask, 8) && aligned(dbias_part, 8)};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (nd_of(d)) {
+    case 1: return static_cast<int>(launch<1>(P, hb, smem, st));
+    case 2: return static_cast<int>(launch<2>(P, hb, smem, st));
+    case 4: return static_cast<int>(launch<4>(P, hb, smem, st));
+    case 8: return static_cast<int>(launch<8>(P, hb, smem, st));
+    default: return static_cast<int>(launch<16>(P, hb, smem, st));
   }
-  t5_attention_bwd_kernel<<<hb, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(pos_bias), static_cast<const int32_t*>(kv_mask),
-      static_cast<const float*>(dmask), static_cast<const float*>(dout),
-      static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv),
-      static_cast<float*>(dbias), batch, lq, lk, d, causal);
+}
+
+// dbias (heads, n) = the sum over the chunk axis of part (heads, nchunk, n), in
+// chunk order. f32, contiguous, on the device.
+int t5_attention_dbias_reduce(const void* part, void* dbias, int heads, int nchunk, int n,
+                              void* stream) {
+  if (heads <= 0 || nchunk <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int total = heads * n;
+  t5_attention_dbias_reduce_kernel<<<(total + kReduceThreads - 1) / kReduceThreads,
+                                     kReduceThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), static_cast<float*>(dbias), nchunk, n, total);
   return static_cast<int>(cudaGetLastError());
 }
 

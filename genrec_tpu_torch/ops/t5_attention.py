@@ -14,13 +14,16 @@ v and ``pos_bias`` (never to the masks). Dispatch, decided by where the
 tensors lie and nothing else:
 - CUDA tensors go to the hand-written kernels ``csrc/t5_attention_fwd.cu``
   and ``csrc/t5_attention_bwd.cu`` (built at first use, ``ops/_build.py``)
-  or raise; nothing falls back;
+  or raise; nothing falls back. The backward writes each block's ds to a
+  scratch buffer and its second kernel, ``t5_attention_dbias_reduce``, sums
+  that over the batch in order: no atomics, so its gradients are
+  bit-identical between two calls on the same inputs;
 - CPU tensors go to the plain versions :func:`t5_attention_reference` and
   :func:`t5_attention_bwd_reference`.
 
-f32 only, for now (bf16 later). ``launches`` and ``bwd_launches`` count
-kernel launches, so a run can show that its main path went through the
-kernels.
+f32 only, for now (bf16 later). ``launches``, ``bwd_launches`` and
+``dbias_reduce_launches`` count kernel launches, so a run can show that its
+main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -34,11 +37,13 @@ from genrec_tpu_torch.ops import _build
 
 _NEG_INF = -1e9
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on H100
+_BWD_MAX_D = 128    # the backward kernel's feature steps: D padded to 8, 16, 32, 64 or 128
 _KERNEL = "t5_attention_fwd"
 _BWD_KERNEL = "t5_attention_bwd"
 
 launches = 0      # forward kernel launches since import (or since a caller reset it)
 bwd_launches = 0  # backward kernel launches, likewise
+dbias_reduce_launches = 0  # the backward's dbias reduction kernel, likewise
 
 _lib = None
 _bwd_lib = None
@@ -68,12 +73,27 @@ def load_bwd_kernel():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.t5_attention_bwd.argtypes = [p] * 11 + [i] * 6 + [p]
         lib.t5_attention_bwd.restype = ctypes.c_int
+        lib.t5_attention_dbias_reduce.argtypes = [p, p, i, i, i, p]
+        lib.t5_attention_dbias_reduce.restype = ctypes.c_int
         lib.t5_attention_bwd_smem_bytes.argtypes = [i, i, i]
         lib.t5_attention_bwd_smem_bytes.restype = ctypes.c_size_t
+        lib.t5_attention_bwd_blocks_per_sm.argtypes = [i, i, i]
+        lib.t5_attention_bwd_blocks_per_sm.restype = ctypes.c_int
         lib.t5_attention_bwd_error_string.argtypes = [i]
         lib.t5_attention_bwd_error_string.restype = ctypes.c_char_p
         _bwd_lib = lib
     return _bwd_lib
+
+
+def bwd_occupancy(lq: int, lk: int, d: int):
+    """(bytes of shared memory per block, blocks resident per SM) of the
+    backward kernel at (lq, lk, d), the latter from the CUDA occupancy API."""
+    lib = load_bwd_kernel()
+    n = lib.t5_attention_bwd_blocks_per_sm(lq, lk, d)
+    if n < 0:
+        msg = lib.t5_attention_bwd_error_string(-n).decode()
+        raise RuntimeError(f"t5_attention_bwd occupancy query failed: {msg} ({-n})")
+    return lib.t5_attention_bwd_smem_bytes(lq, lk, d), n
 
 
 def make_dropout_mask(generator: torch.Generator, hb: int, lq: int, lk: int, rate: float,
@@ -123,6 +143,18 @@ def t5_attention_reference(qf, kf, vf, h: int, pos_bias=None, kv_mask=None, *,
     return torch.bmm(p.to(vf.dtype), vf).to(qf.dtype)
 
 
+def _bwd_scores(qf, kf, vf, h: int, pos_bias, kv_mask, do, causal: bool, dropout_mask):
+    """(ds, p·dm) of the backward, (H·B, Lq, Lk): dp = (do·vᵀ)·dm and
+    ds = p·(dp − rowsum(dp·p))."""
+    p = _probs(qf, kf, h, pos_bias, kv_mask, causal)
+    dp = torch.bmm(_acc(do), _acc(vf).transpose(1, 2))
+    pd = p
+    if dropout_mask is not None:
+        dm = _acc(dropout_mask)
+        dp, pd = dp * dm, p * dm
+    return p * (dp - (dp * p).sum(dim=-1, keepdim=True)), pd
+
+
 def t5_attention_bwd_reference(qf, kf, vf, h: int, pos_bias, kv_mask, do, *,
                                causal: bool = False, dropout_mask=None,
                                need_dbias: bool = True):
@@ -132,13 +164,7 @@ def t5_attention_bwd_reference(qf, kf, vf, h: int, pos_bias, kv_mask, do, *,
     dbias = Σ_b ds (None unless ``pos_bias`` is given and ``need_dbias``)."""
     hb, lq, _ = qf.shape
     lk = kf.shape[1]
-    p = _probs(qf, kf, h, pos_bias, kv_mask, causal)
-    dp = torch.bmm(_acc(do), _acc(vf).transpose(1, 2))
-    pd = p
-    if dropout_mask is not None:
-        dm = _acc(dropout_mask)
-        dp, pd = dp * dm, p * dm
-    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    ds, pd = _bwd_scores(qf, kf, vf, h, pos_bias, kv_mask, do, causal, dropout_mask)
     dq = torch.bmm(ds, _acc(kf))
     dk = torch.bmm(ds.transpose(1, 2), _acc(qf))
     dv = torch.bmm(pd.transpose(1, 2), _acc(do))
@@ -146,6 +172,15 @@ def t5_attention_bwd_reference(qf, kf, vf, h: int, pos_bias, kv_mask, do, *,
     if pos_bias is not None and need_dbias:
         dbias = ds.view(h, hb // h, lq, lk).sum(dim=1)
     return dq, dk, dv, dbias
+
+
+def dbias_reduce_reference(partial):
+    """Plain version of the dbias reduction kernel: (H, C, Lq, Lk) → (H, Lq,
+    Lk), the sum over C taken in order, from chunk 0 up."""
+    out = torch.zeros_like(partial[:, 0])
+    for c in range(partial.shape[1]):
+        out = out + partial[:, c]
+    return out
 
 
 def _check(qf, kf, vf, h, pos_bias, kv_mask, dmask, do=None):
@@ -221,30 +256,51 @@ def _launch(qf, kf, vf, h, pos_bias, kv_mask, dmask, causal):
     return out
 
 
+def _launch_dbias_reduce(partial):
+    global dbias_reduce_launches
+    h, nchunk, lq, lk = partial.shape
+    lib = load_bwd_kernel()
+    dbias = torch.empty((h, lq, lk), dtype=torch.float32, device=partial.device)
+    with torch.cuda.device(partial.device):
+        stream = torch.cuda.current_stream(partial.device).cuda_stream
+        err = lib.t5_attention_dbias_reduce(_ptr(partial), _ptr(dbias), h, nchunk, lq * lk,
+                                            stream)
+    if err != 0:
+        msg = lib.t5_attention_bwd_error_string(err).decode()
+        raise RuntimeError(f"t5_attention_dbias_reduce launch failed: {msg} ({err})")
+    dbias_reduce_launches += 1
+    return dbias
+
+
 def _launch_bwd(qf, kf, vf, h, pos_bias, kv_mask, dmask, do, causal, need_dbias):
     global bwd_launches
     hb, lq, d = qf.shape
     lk = kf.shape[1]
+    if d > _BWD_MAX_D:
+        raise ValueError(f"t5_attention_bwd: D={d} is above the kernel's {_BWD_MAX_D}")
     lib = load_bwd_kernel()
     smem = lib.t5_attention_bwd_smem_bytes(lq, lk, d)
     if smem > _MAX_SMEM:
         raise ValueError(f"t5_attention_bwd: Lq={lq}, Lk={lk}, D={d} needs {smem} bytes of "
                          f"shared memory per block, above the card's {_MAX_SMEM}")
     dq, dk, dv = torch.empty_like(qf), torch.empty_like(kf), torch.empty_like(vf)
-    # the kernel atomically adds each batch row's ds into a zeroed buffer
-    dbias = (torch.zeros((h, lq, lk), dtype=torch.float32, device=qf.device)
-             if pos_bias is not None and need_dbias else None)
+    # each block writes its flat row's ds here; the reduce kernel then sums
+    # over the batch in order: no atomics, no zeroing
+    b = hb // h
+    partial = (torch.empty((h, b, lq, lk), dtype=torch.float32, device=qf.device)
+               if pos_bias is not None and need_dbias else None)
     mask32 = None if kv_mask is None else kv_mask.to(torch.int32).contiguous()
     with torch.cuda.device(qf.device):
         stream = torch.cuda.current_stream(qf.device).cuda_stream
         err = lib.t5_attention_bwd(
             _ptr(qf), _ptr(kf), _ptr(vf), _ptr(pos_bias), _ptr(mask32), _ptr(dmask),
-            _ptr(do), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dbias), hb, hb // h, lq, lk, d,
+            _ptr(do), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(partial), hb, b, lq, lk, d,
             int(causal), stream)
     if err != 0:
         msg = lib.t5_attention_bwd_error_string(err).decode()
         raise RuntimeError(f"t5_attention_bwd launch failed: {msg} ({err})")
     bwd_launches += 1
+    dbias = None if partial is None else _launch_dbias_reduce(partial)
     return dq, dk, dv, dbias
 
 
@@ -262,13 +318,28 @@ def t5_attention_fwd(qf, kf, vf, h: int, pos_bias=None, kv_mask=None, *,
 def t5_attention_bwd(qf, kf, vf, h: int, pos_bias, kv_mask, do, *, causal: bool = False,
                      dropout_mask=None, need_dbias: bool = True):
     """The backward on its own: (dq, dk, dv, dbias) from the output gradient
-    ``do`` (H·B, Lq, D), the kernel on CUDA tensors, the plain version on CPU
+    ``do`` (H·B, Lq, D), the kernels on CUDA tensors, the plain version on CPU
     tensors. dbias is None unless ``pos_bias`` is given and ``need_dbias``."""
     _check(qf, kf, vf, h, pos_bias, kv_mask, dropout_mask, do)
     if qf.device.type == "cpu":
         return t5_attention_bwd_reference(qf, kf, vf, h, pos_bias, kv_mask, do, causal=causal,
                                           dropout_mask=dropout_mask, need_dbias=need_dbias)
     return _launch_bwd(qf, kf, vf, h, pos_bias, kv_mask, dropout_mask, do, causal, need_dbias)
+
+
+def t5_attention_dbias_reduce(partial):
+    """The backward's dbias reduction on its own: (H, C, Lq, Lk) f32 → (H, Lq,
+    Lk), summed over C in order; the kernel on a CUDA tensor, the plain
+    version on a CPU tensor."""
+    if partial.dim() != 4 or partial.dtype != torch.float32 or not partial.is_contiguous():
+        raise ValueError(f"partial must be a contiguous (H, C, Lq, Lk) float32 tensor, got "
+                         f"{partial.dtype} {tuple(partial.shape)}")
+    if partial.device.type == "cpu":
+        return dbias_reduce_reference(partial)
+    if partial.device.type != "cuda":
+        raise ValueError(f"t5_attention_dbias_reduce runs on CUDA or CPU tensors, not "
+                         f"{partial.device}")
+    return _launch_dbias_reduce(partial)
 
 
 class _FusedT5Attention(torch.autograd.Function):
