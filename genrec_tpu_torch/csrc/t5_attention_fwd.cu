@@ -1,4 +1,4 @@
-// Fused T5 attention forward for Hopper (sm_90a), f32.
+// Fused T5 attention forward for Hopper (sm_90a), f32 in and out.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` of genrec_tpu/ops/t5_attention.py
 // (reached through `_fwd_call`). It computes the same function, not the same
@@ -12,136 +12,471 @@
 //   p      *= dmask[hb, i, :]                          (if given)
 //   out[i]  = p[i, :] . v
 //
-// The -1e9 terms are ADDED in f32 in that order (never a `where`, never -inf),
-// so a fully masked row comes out finite, as the mean of v over the keys that
-// tie for its maximum, exactly like the plain version and the reference. The
-// TPU kernel folded the key-padding mask into an extra q/k feature column
-// because Mosaic could not broadcast it; this kernel reads the (B, Lk) mask
-// directly.
+// The -1e9 terms are ADDED in f32 in that order (never a `where`), so a fully
+// masked row comes out finite, as the mean of v over the keys that tie for its
+// maximum, exactly like the plain version and the reference. The TPU kernel
+// folded the key-padding mask into an extra q/k feature column because Mosaic
+// could not broadcast it; this kernel reads the (B, Lk) mask directly.
 //
-// Bound on this card: at the TIGER shapes (L = 80, D = 16) the work is tiny
-// per row: 4*D multiply-adds and a handful of softmax operations per score,
-// against 4*D*4 bytes of q/k/v/out per row. Reading q, k, v and writing out
-// once is about as long as the f32 (non-tensor-core) arithmetic, so the kernel
-// is bound by both about equally (PERF.md reckons both). This design runs far
-// above that bound (PERF.md): its inner loops issue a shared-memory load per
-// FMA, and the P.V loop keeps only D of 32 lanes busy. Design, simple first:
-//   - one block per (h*B + b, tile of kTileRows query rows), kWarps warps;
-//   - that row's K and V staged once in dynamic shared memory (80 x 16 f32 each
-//     at the serve shape), K with a padded row stride so that lanes reading
-//     neighbouring keys hit different banks;
-//   - one warp per query row: lanes split the keys, softmax by warp shuffles,
-//     probabilities kept in a per-warp shared buffer for the P.V product;
-//   - f32 FMA throughout, accurate expf (no fast-math).
-// Dynamic shared memory above 48 KB is enabled with cudaFuncSetAttribute, so
-// that the decoder training shapes (L = 156) fit; the wrapper refuses shapes
-// beyond the card's 227 KB. Making it fast (wgmma, TMA, many rows per block)
-// is later work.
+// Bound on this card: at the TIGER shapes (L = 80 or 156, D = 16) a score costs
+// 4*D flops of products and about 8 f32 operations of softmax, masks and
+// dropout, against 4*D*4 bytes of q, k, v and out per row; the f32 dropout mask
+// that training passes is 4 bytes per score, the largest input (100 MB at the
+// decoder shape), and with it the kernel is bound by bytes. The design:
+//
+//   - a block of up to kWarps warps per flat row hb, or per group of its 16-row
+//     query strips when there are too few flat rows to fill the card (serving at
+//     B = 1 has 4). K and V of the row are staged once in shared memory with
+//     cp.async at a padded row stride (8*ND + 4 floats, which makes every
+//     fragment load below free of bank conflicts), keys padded to a multiple of
+//     8 and features to 8, 16, 32, 64 or 128 with zeros; the key mask is staged
+//     as additive terms. No (Lq, Lk) tile is kept: 26,240 bytes at Lk = 156,
+//     D = 16, which leaves most of the SM's 256 KB to L1 at 4 blocks an SM.
+//     (Staging K and V already split into TF32 pairs took 49,280 bytes, and
+//     the kernel was slower with it where the dropout mask streams through L1:
+//     0.146 against 0.104 ms at the decoder shape; PERF.md.)
+//   - a warp per 16-row query strip. It holds its strip's Q A fragments in
+//     registers up to D = 64, read once from global memory; at D = 128 they
+//     would take most of them, and are reloaded at each use.
+//   - both products on the tensor cores: mma.sync m16n8k8 in TF32 with the
+//     3xTF32 split (a = hi + lo, hi = cvt.rna(a); lo.hi + hi.lo + hi.hi summed in
+//     f32), which keeps f32 accuracy: one TF32 pass would be off by about 4e-4
+//     of the largest score. Each 8-deep step (8 features of q.k, 8 keys of P.V)
+//     goes into a fresh accumulator that is added to the running sum in f32:
+//     the tensor cores' own additions do not round to nearest, and chained
+//     through one accumulator (48 mma at D = 128) they left the output 2.5x
+//     farther from f64 than the plain f32 version (PERF.md). mma.sync, not
+//     wgmma: the strips are 16 rows deep and at most 156 long, where 64-row
+//     tiles would waste 19% on padding.
+//   - an online softmax over 8-key tiles. Lane t of a quad holds keys 2t and
+//     2t + 1 of its two query rows (the accumulator fragment's layout); the four
+//     lanes agree on each row's running max m by two shuffles a tile, so that
+//     the tile's probabilities can enter one P.V product. The normalisation is
+//     deferred: out = sum_j e^(s_j - m) * dm_j * v_j / max(l, 1e-30), with
+//     l = sum_j e^(s_j - m), which is the reference's function (the dropout mask
+//     multiplies the normalised probability there). An exact two-pass softmax
+//     would have to keep the strip's scores in registers (80 a lane at Lk = 160)
+//     or compute Q.K^T twice.
+//   - the bias and the dropout mask are read from global memory in the
+//     accumulator fragment's layout, 8 bytes a lane, each value once, one tile
+//     ahead of its use so that the load's latency hides behind a tile of work.
+//     A head's (Lq, Lk) bias is shared by the B blocks of its head and stays in L2.
+//   - P.V: the probabilities' accumulator fragment is fed back as the A operand
+//     with its 8 keys taken in the order the fragment holds them (2t, 2t + 1 on
+//     lane t), and V's rows are read in the same order, so no shuffle is needed.
+//     Each output row is written once, and only real rows.
+//   - ragged edges without load guards in the loop: a padding key (past Lk,
+//     156 -> 160) scores -inf through the key-mask row, not -1e9: a fully masked
+//     row's real keys all sit near -1e9, and a padding key there would join
+//     their tie and pull zeros into the mean. The running max starts at
+//     -FLT_MAX, so e^(-inf - m) is 0 and no inf * 0 appears, also in the padding
+//     query rows (computed, never stored). Bias and mask indices are clamped
+//     into the data.
+//   - accurate expf, no fast-math; no atomics. Every output has one owner and a
+//     fixed order of summation, which does not depend on how the strips are
+//     split over blocks, so two calls give bit-equal outputs.
 
 #include <cuda_runtime.h>
 
+#include <cfloat>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = 4;
-constexpr int kTileRows = kWarps * kRowsPerWarp;
+constexpr int kWarps = 5;  // 80-row and 160-row query tiles split evenly
+constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e9f;
+constexpr int kMaxD = 128;
 constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block may use on H100
+constexpr int kFillBlocks = 264;     // two blocks per SM of an H100: split strips below
+constexpr int kMinBlocksD16 = 4;     // blocks per SM the D <= 16 build is held to
+
+__host__ __device__ inline int pad8(int n) { return (n + 7) / 8 * 8; }
+__host__ __device__ inline int strips_of(int lq) { return (lq + 15) / 16; }
+
+// 8-wide feature steps: D padded to 8, 16, 32, 64 or 128.
+int nd_of(int d) { return d <= 8 ? 1 : d <= 16 ? 2 : d <= 32 ? 4 : d <= 64 ? 8 : 16; }
 
 size_t smem_floats(int lk, int d) {
-  // K (padded stride d+1) + V + additive key mask + per-warp q row + per-warp probs
-  return (size_t)lk * (d + 1) + (size_t)lk * d + lk + (size_t)kWarps * (d + lk);
+  const size_t stride = 8 * nd_of(d) + 4;
+  const size_t lkp = pad8(lk);
+  return 2 * lkp * stride  // K and V
+         + lkp;            // additive key mask, -inf past the last key
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+struct Params {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* pos_bias;
+  const int32_t* kv_mask;
+  const float* dmask;
+  float* out;
+  int batch, lq, lk, d, causal;
+  int spb;    // query strips per block
+  int vec16;  // k and v staged 16 bytes at a time
+  int pair;   // bias and dropout mask read 2 floats at a time
+  int out2;   // out written 2 floats at a time
+};
+
+// ---- TF32 tensor-core helpers ----
+
+// cvt.rna.tf32.f32 of a finite x: the low 13 bits rounded off to nearest,
+// ties away from zero, in two integer operations (the cvt instruction is
+// emulated with checks for inf and NaN; every operand here is finite).
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+// x = hi + lo, each a TF32 operand. lo is rounded like hi but keeps its low 13
+// bits, which the tensor cores ignore.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-t5_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ pos_bias,
-                        const int32_t* __restrict__ kv_mask, const float* __restrict__ dmask,
-                        float* __restrict__ out, int batch, int lq, int lk, int d, int causal) {
-  extern __shared__ float smem[];
-  const int ds = d + 1;
-  float* ks = smem;               // lk * ds
-  float* vs = ks + lk * ds;       // lk * d
-  float* madd = vs + lk * d;      // lk
-  float* qs = madd + lk;          // kWarps * d
-  float* ps = qs + kWarps * d;    // kWarps * lk
+struct FragA {  // 16 x 8, row-major: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+  uint32_t hi[4], lo[4];
+};
+struct FragB {  // 8 x 8: (k = t, n = g), (k = t + 4, n = g)
+  uint32_t hi[2], lo[2];
+};
 
-  const int hb = blockIdx.x;
-  const int h = hb / batch;
-  const int b = hb % batch;
-  const float* kb = k + (size_t)hb * lk * d;
-  const float* vb = v + (size_t)hb * lk * d;
-  for (int i = threadIdx.x; i < lk * d; i += blockDim.x) {
-    ks[(i / d) * ds + i % d] = kb[i];
-    vs[i] = vb[i];
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a.b in 3xTF32, the small terms first.
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, const FragB& b) {
+  mma(c, a.lo, b.hi);
+  mma(c, a.hi, b.lo);
+  mma(c, a.hi, b.hi);
+}
+
+// A fragment of rows r0..r0+15, features k0..k0+7 of the flat row's q (lq x d
+// in global memory), zero past the last row and the last feature.
+__device__ __forceinline__ void load_q(FragA& f, const float* q, const Params& P, int r0, int k0,
+                                       int g, int t) {
+  const int rows[2] = {r0 + g, r0 + g + 8}, cols[2] = {k0 + t, k0 + t + 4};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int i = rows[e & 1], c = cols[e >> 1];
+    split(i < P.lq && c < P.d ? __ldg(q + (i * P.d + c)) : 0.0f, f.hi[e], f.lo[e]);
   }
-  for (int j = threadIdx.x; j < lk; j += blockDim.x)
-    madd[j] = kv_mask ? (1.0f - (float)kv_mask[(size_t)b * lk + j]) * kNegInf : 0.0f;
+}
+
+// A warp holds the A fragments of its 16-row strip over all ND feature steps
+// in registers up to D = 64; at D = 128 it reloads each at its use.
+template <int ND>
+constexpr int kHeld = ND <= 8 ? ND : 1;
+
+template <int ND>
+__device__ __forceinline__ void hold(FragA (&f)[kHeld<ND>], const float* q, const Params& P,
+                                     int r0, int g, int t) {
+  if constexpr (ND <= 8) {
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) load_q(f[kk], q, P, r0, 8 * kk, g, t);
+  }
+}
+
+// Feature step kk of a strip: held, or reloaded.
+template <int ND>
+__device__ __forceinline__ FragA step(const FragA (&f)[kHeld<ND>], const float* q,
+                                      const Params& P, int r0, int kk, int g, int t) {
+  if constexpr (ND <= 8) {
+    return f[kk];
+  } else {
+    FragA a;
+    load_q(a, q, P, r0, 8 * kk, g, t);
+    return a;
+  }
+}
+
+// B fragment of X.Y^T: rows n0..n0+7 of Y as columns, features k0..k0+7.
+__device__ __forceinline__ void load_bt(FragB& f, const float* y, int stride, int n0, int k0,
+                                        int g, int t) {
+  const float* p = y + (n0 + g) * stride + k0 + t;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[4], f.hi[1], f.lo[1]);
+}
+
+// B fragment of C.Y, where C is an accumulator fragment over rows n0..n0+7 of
+// Y: features c0..c0+7 of Y, its rows in the order the fragment holds them
+// (lane t: rows 2t and 2t + 1).
+__device__ __forceinline__ void load_b(FragB& f, const float* y, int stride, int n0, int c0,
+                                       int g, int t) {
+  const float* p = y + (n0 + 2 * t) * stride + c0 + g;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[stride], f.hi[1], f.lo[1]);
+}
+
+// An accumulator fragment (16 x 8: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8,
+// 2t + 1)) as an A operand whose column t is column 2t and column t + 4 is 2t + 1.
+__device__ __forceinline__ void a_from_c(FragA& f, const float (&c)[4]) {
+  split(c[0], f.hi[0], f.lo[0]);
+  split(c[2], f.hi[1], f.lo[1]);
+  split(c[1], f.hi[2], f.lo[2]);
+  split(c[3], f.hi[3], f.lo[3]);
+}
+
+// ---- scores and masks ----
+
+// The score of query i and key j from q.k, the bias value and the key-mask
+// term (-inf past the last key), added in the reference's order.
+__device__ __forceinline__ float score(float qk, float bias, float madd, const Params& P, int i,
+                                       int j) {
+  float s = qk + bias;
+  if (P.causal && j > i + P.lk - P.lq) s += kNegInf;
+  return s + madd;
+}
+
+// Values j and j + 1 of the row at `row` (an offset into x) of the bias or the
+// dropout mask. Indices are clamped into the row: past the last key the score
+// is -inf and the probability 0, so the (finite) value read there does not
+// count, and no load needs a guard.
+__device__ __forceinline__ void load2(float& a, float& b, const float* x, int row, int j,
+                                      const Params& P) {
+  if (P.pair) {  // j even, lk even
+    const float2 v = __ldg(reinterpret_cast<const float2*>(x + (row + min(j, P.lk - 2))));
+    a = v.x, b = v.y;
+  } else {
+    a = __ldg(x + (row + min(j, P.lk - 1)));
+    b = __ldg(x + (row + min(j + 1, P.lk - 1)));
+  }
+}
+
+// The bias and dropout-mask values of the tile at key j (lane t: keys j, j + 1
+// of rows roff[0] and roff[1]); 0 and 1 where none is given.
+__device__ __forceinline__ void load_tile(float (&bv)[4], float (&dm)[4], const float* bias_h,
+                                          const float* dm_hb, const int (&roff)[2], int j,
+                                          const Params& P) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (bias_h) load2(bv[2 * r], bv[2 * r + 1], bias_h, roff[r], j, P);
+    else bv[2 * r] = bv[2 * r + 1] = 0.0f;
+    if (dm_hb) load2(dm[2 * r], dm[2 * r + 1], dm_hb, roff[r], j, P);
+    else dm[2 * r] = dm[2 * r + 1] = 1.0f;
+  }
+}
+
+// ---- staging ----
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src));
+}
+
+// rows x d floats from global into shared memory at row stride `stride`.
+__device__ __forceinline__ void stage(float* dst, const float* src, int rows, int d, int stride,
+                                      bool vec16) {
+  if (vec16) {
+    const int per_row = d / 4;
+    for (int idx = threadIdx.x; idx < rows * per_row; idx += blockDim.x) {
+      const int r = idx / per_row, c = (idx - r * per_row) * 4;
+      cp_async16(dst + r * stride + c, src + (size_t)r * d + c);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * d; idx += blockDim.x) {
+      const int r = idx / d, c = idx - r * d;
+      cp_async4(dst + r * stride + c, src + idx);
+    }
+  }
+}
+
+// Zeros where a staged matrix has no data: rows >= rows, features >= d.
+__device__ __forceinline__ void zero_pad(float* dst, int rows, int rows_p, int d, int dp,
+                                         int stride) {
+  for (int idx = threadIdx.x; idx < rows_p * dp; idx += blockDim.x) {
+    const int r = idx / dp, c = idx - r * dp;
+    if (r >= rows || c >= d) dst[r * stride + c] = 0.0f;
+  }
+}
+
+// ---- a warp per 16-row query strip ----
+
+template <int ND>
+__device__ __forceinline__ void strip(const Params& P, const float* q_hb, const float* sk,
+                                      const float* sv, const float* madd, const float* bias_h,
+                                      const float* dm_hb, float* out_hb, int r0, int lkp, int g,
+                                      int t) {
+  constexpr int S = 8 * ND + 4;
+  FragA qa[kHeld<ND>];
+  hold<ND>(qa, q_hb, P, r0, g, t);
+  const int rows[2] = {r0 + g, r0 + g + 8};
+  // the offsets of the rows of the bias and the dropout mask; padding rows
+  // read the last row (they are never stored), so the loads need no guard
+  const int roff[2] = {min(rows[0], P.lq - 1) * P.lk, min(rows[1], P.lq - 1) * P.lk};
+
+  // m: the row's running max, the same on the four lanes of a quad; it starts
+  // finite, so padding keys (-inf) give e = 0 and never a NaN. l: this lane's
+  // part of sum e^(s - m). acc: sum e^(s - m) * dm * v over the keys so far.
+  float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.0f, 0.0f};
+  float acc[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.0f;
+  float bv[4], dm[4];
+  load_tile(bv, dm, bias_h, dm_hb, roff, 2 * t, P);
+  for (int n0 = 0; n0 < lkp; n0 += 8) {
+    const int j = n0 + 2 * t;
+    float bn[4], dn[4];  // the next tile's (clamped past the end: never used there)
+    load_tile(bn, dn, bias_h, dm_hb, roff, j + 8, P);
+    const float2 mk = *reinterpret_cast<const float2*>(madd + j);
+    // each 8-deep step's product in a fresh accumulator, added to the sum in
+    // f32: the tensor cores' own additions do not round to nearest, and along
+    // one chain of 3 * ND of them the error grows with D
+    float s[4];
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) {
+      FragB b;
+      load_bt(b, sk, S, n0, 8 * kk, g, t);
+      float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      mma3(c, step<ND>(qa, q_hb, P, r0, kk, g, t), b);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[e] = kk == 0 ? c[e] : s[e] + c[e];
+    }
+    float p[4], scale[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float s0 = score(s[2 * r], bv[2 * r], mk.x, P, rows[r], j);
+      const float s1 = score(s[2 * r + 1], bv[2 * r + 1], mk.y, P, rows[r], j + 1);
+      float mx = fmaxf(s0, s1);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(m[r], mx);
+      scale[r] = mx > m[r] ? expf(m[r] - mx) : 1.0f;  // expf(0) is 1
+      const float e0 = expf(s0 - mx), e1 = expf(s1 - mx);
+      l[r] = l[r] * scale[r] + e0 + e1;
+      p[2 * r] = e0 * dm[2 * r];
+      p[2 * r + 1] = e1 * dm[2 * r + 1];
+      m[r] = mx;
+    }
+    // the tile's P.V, likewise in a fresh accumulator: acc = acc * scale + P.V
+    FragA a;
+    a_from_c(a, p);
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      FragB b;
+      load_b(b, sv, S, n0, 8 * nd, g, t);
+      float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      mma3(c, a, b);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nd][e] = fmaf(acc[nd][e], scale[e >> 1], c[e]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) bv[e] = bn[e], dm[e] = dn[e];
+  }
+  // the four lanes of a quad hold one row's keys: sum their l, identically on
+  // each (a sum of two is commutative)
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = __fadd_rn(l[r], __shfl_xor_sync(0xffffffffu, l[r], 1));
+    l[r] = __fadd_rn(l[r], __shfl_xor_sync(0xffffffffu, l[r], 2));
+    den[r] = fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = rows[r], c = 8 * nd + 2 * t;
+      if (i >= P.lq || c >= P.d) continue;
+      const float o0 = acc[nd][2 * r] / den[r], o1 = acc[nd][2 * r + 1] / den[r];
+      float* dst = out_hb + (i * P.d + c);
+      if (P.out2) {  // d even: c + 1 < d
+        *reinterpret_cast<float2*>(dst) = make_float2(o0, o1);
+      } else {
+        dst[0] = o0;
+        if (c + 1 < P.d) dst[1] = o1;
+      }
+    }
+}
+
+// A block of one flat row hb (blockIdx.x) and strips blockIdx.y * spb onwards.
+template <int ND>
+__global__ void __launch_bounds__(kThreads, ND <= 2 ? kMinBlocksD16 : (ND == 4 ? 2 : 1))
+t5_attention_fwd_kernel(const Params P) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int S = 8 * ND + 4;
+  const int lkp = pad8(P.lk);
+  float* sk = smem;
+  float* sv = sk + lkp * S;
+  float* madd = sv + lkp * S;
+
+  const int hb = blockIdx.x, h = hb / P.batch, b = hb - h * P.batch;
+  const size_t kv_off = (size_t)hb * P.lk * P.d;
+  zero_pad(sk, P.lk, lkp, P.d, 8 * ND, S);  // the staging below never writes these
+  zero_pad(sv, P.lk, lkp, P.d, 8 * ND, S);
+  stage(sk, P.k + kv_off, P.lk, P.d, S, P.vec16);
+  stage(sv, P.v + kv_off, P.lk, P.d, S, P.vec16);
+  asm volatile("cp.async.commit_group;");
+  for (int j = threadIdx.x; j < lkp; j += blockDim.x)
+    madd[j] = j >= P.lk  ? -INFINITY
+              : P.kv_mask ? (1.0f - (float)P.kv_mask[(size_t)b * P.lk + j]) * kNegInf
+                          : 0.0f;
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* qw = qs + warp * d;
-  float* pw = ps + warp * lk;
-  const int shift = lk - lq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float* q_hb = P.q + (size_t)hb * P.lq * P.d;
+  const float* bias_h = P.pos_bias ? P.pos_bias + (size_t)h * P.lq * P.lk : nullptr;
+  const float* dm_hb = P.dmask ? P.dmask + (size_t)hb * P.lq * P.lk : nullptr;
+  float* out_hb = P.out + (size_t)hb * P.lq * P.d;
+  const int first = blockIdx.y * P.spb, last = min(first + P.spb, strips_of(P.lq));
+  for (int st = first + warp; st < last; st += blockDim.x >> 5)  // warp-uniform
+    strip<ND>(P, q_hb, sk, sv, madd, bias_h, dm_hb, out_hb, 16 * st, lkp, g, t);
+}
 
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int row = blockIdx.y * kTileRows + rr * kWarps + warp;
-    if (row >= lq) break;  // warp-uniform
-    const size_t qrow = (size_t)hb * lq + row;
-    for (int c = lane; c < d; c += 32) qw[c] = q[qrow * d + c];
-    __syncwarp();
+template <int ND>
+cudaError_t prepare(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(t5_attention_fwd_kernel<ND>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
 
-    const float* brow = pos_bias ? pos_bias + ((size_t)h * lq + row) * lk : nullptr;
-    float mx = -INFINITY;
-    for (int j = lane; j < lk; j += 32) {
-      const float* kr = ks + j * ds;
-      float s = 0.0f;
-      for (int c = 0; c < d; ++c) s = fmaf(qw[c], kr[c], s);
-      if (brow) s += brow[j];
-      if (causal && j > row + shift) s += kNegInf;
-      if (kv_mask) s += madd[j];
-      pw[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
+template <int ND>
+cudaError_t launch(const Params& P, dim3 grid, int threads, size_t smem, cudaStream_t stream) {
+  const cudaError_t e = prepare<ND>(smem);
+  if (e != cudaSuccess) return e;
+  t5_attention_fwd_kernel<ND><<<grid, threads, smem, stream>>>(P);
+  return cudaGetLastError();
+}
 
-    float sum = 0.0f;
-    for (int j = lane; j < lk; j += 32) {
-      const float e = expf(pw[j] - mx);
-      pw[j] = e;
-      sum += e;
-    }
-    const float denom = fmaxf(warp_sum(sum), 1e-30f);
-    const float* drow = dmask ? dmask + qrow * lk : nullptr;
-    for (int j = lane; j < lk; j += 32) {
-      float p = pw[j] / denom;
-      if (drow) p *= drow[j];
-      pw[j] = p;
-    }
-    __syncwarp();
+template <int ND>
+int occupancy(int threads, size_t smem) {
+  cudaError_t e = prepare<ND>(smem);
+  int n = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, t5_attention_fwd_kernel<ND>, threads,
+                                                      smem);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+}
 
-    for (int c = lane; c < d; c += 32) {
-      float acc = 0.0f;
-      for (int j = 0; j < lk; ++j) acc = fmaf(pw[j], vs[j * d + c], acc);
-      out[qrow * d + c] = acc;
-    }
-    __syncwarp();  // the next row overwrites qw and pw
-  }
+// Query strips per block: all of a flat row's when there are enough flat rows
+// to give every SM two blocks, else as few as keep kFillBlocks blocks busy.
+int strips_per_block(int hb, int lq) {
+  const int n = strips_of(lq);
+  if (hb >= kFillBlocks) return n;
+  const long long want = ((long long)hb * n + kFillBlocks - 1) / kFillBlocks;
+  return (int)(want < n ? want : n);
+}
+
+int threads_of(int spb) { return 32 * (spb < kWarps ? spb : kWarps); }
+
+bool aligned(const void* p, uintptr_t bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
 }  // namespace
@@ -151,32 +486,60 @@ extern "C" {
 // Bytes of dynamic shared memory one block needs for (lk, d).
 size_t t5_attention_fwd_smem_bytes(int lk, int d) { return smem_floats(lk, d) * sizeof(float); }
 
+// Blocks of the forward kernel resident on one SM at (lq, lk, d) when each
+// block takes a whole flat row, from cudaOccupancyMaxActiveBlocksPerMultiprocessor;
+// minus the CUDA error on failure.
+int t5_attention_fwd_blocks_per_sm(int lq, int lk, int d) {
+  const size_t smem = t5_attention_fwd_smem_bytes(lk, d);
+  if (smem > kMaxSmem || lq <= 0 || lk <= 0 || d <= 0 || d > kMaxD)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  const int threads = threads_of(strips_of(lq));
+  switch (nd_of(d)) {
+    case 1: return occupancy<1>(threads, smem);
+    case 2: return occupancy<2>(threads, smem);
+    case 4: return occupancy<4>(threads, smem);
+    case 8: return occupancy<8>(threads, smem);
+    default: return occupancy<16>(threads, smem);
+  }
+}
+
 const char* t5_attention_fwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 // q: (hb, lq, d), k/v: (hb, lk, d), pos_bias: (hb / batch, lq, lk) or NULL,
 // kv_mask: (batch, lk) int32 or NULL, dmask: (hb, lq, lk) or NULL,
-// out: (hb, lq, d). All f32 except kv_mask, contiguous, on the device.
+// out: (hb, lq, d). All f32 except kv_mask, contiguous, on the device; d <= 128.
 // Launches on `stream` and returns cudaGetLastError().
 int t5_attention_fwd(const void* q, const void* k, const void* v, const void* pos_bias,
                      const void* kv_mask, const void* dmask, void* out, int hb, int batch,
                      int lq, int lk, int d, int causal, void* stream) {
   const size_t smem = t5_attention_fwd_smem_bytes(lk, d);
   if (smem > kMaxSmem || hb <= 0 || batch <= 0 || hb % batch != 0 || lq <= 0 || lk <= 0 ||
-      d <= 0)
+      d <= 0 || d > kMaxD)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        t5_attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
+  const int spb = strips_per_block(hb, lq);
+  Params P{static_cast<const float*>(q),
+           static_cast<const float*>(k),
+           static_cast<const float*>(v),
+           static_cast<const float*>(pos_bias),
+           static_cast<const int32_t*>(kv_mask),
+           static_cast<const float*>(dmask),
+           static_cast<float*>(out),
+           batch, lq, lk, d, causal, spb,
+           d % 4 == 0 && aligned(k, 16) && aligned(v, 16),
+           lk % 2 == 0 && aligned(pos_bias, 8) && aligned(dmask, 8),
+           d % 2 == 0 && aligned(out, 8)};
+  const dim3 grid(hb, (strips_of(lq) + spb - 1) / spb);
+  const int threads = threads_of(spb);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (nd_of(d)) {
+    case 1: return static_cast<int>(launch<1>(P, grid, threads, smem, st));
+    case 2: return static_cast<int>(launch<2>(P, grid, threads, smem, st));
+    case 4: return static_cast<int>(launch<4>(P, grid, threads, smem, st));
+    case 8: return static_cast<int>(launch<8>(P, grid, threads, smem, st));
+    default: return static_cast<int>(launch<16>(P, grid, threads, smem, st));
   }
-  const dim3 grid(hb, (lq + kTileRows - 1) / kTileRows);
-  t5_attention_fwd_kernel<<<grid, kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(pos_bias), static_cast<const int32_t*>(kv_mask),
-      static_cast<const float*>(dmask), static_cast<float*>(out), batch, lq, lk, d, causal);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

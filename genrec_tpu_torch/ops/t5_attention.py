@@ -21,9 +21,9 @@ tensors lie and nothing else:
 - CPU tensors go to the plain versions :func:`t5_attention_reference` and
   :func:`t5_attention_bwd_reference`.
 
-f32 only, for now (bf16 later). ``launches``, ``bwd_launches`` and
-``dbias_reduce_launches`` count kernel launches, so a run can show that its
-main path went through the kernels.
+f32 only, for now (bf16 later); the kernels take D ≤ 128. ``launches``,
+``bwd_launches`` and ``dbias_reduce_launches`` count kernel launches, so a
+run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ from genrec_tpu_torch.ops import _build
 
 _NEG_INF = -1e9
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on H100
-_BWD_MAX_D = 128    # the backward kernel's feature steps: D padded to 8, 16, 32, 64 or 128
+_MAX_D = 128        # both kernels' feature steps: D padded to 8, 16, 32, 64 or 128
 _KERNEL = "t5_attention_fwd"
 _BWD_KERNEL = "t5_attention_bwd"
 
@@ -59,6 +59,8 @@ def load_kernel():
         lib.t5_attention_fwd.restype = ctypes.c_int
         lib.t5_attention_fwd_smem_bytes.argtypes = [i, i]
         lib.t5_attention_fwd_smem_bytes.restype = ctypes.c_size_t
+        lib.t5_attention_fwd_blocks_per_sm.argtypes = [i, i, i]
+        lib.t5_attention_fwd_blocks_per_sm.restype = ctypes.c_int
         lib.t5_attention_fwd_error_string.argtypes = [i]
         lib.t5_attention_fwd_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -83,6 +85,18 @@ def load_bwd_kernel():
         lib.t5_attention_bwd_error_string.restype = ctypes.c_char_p
         _bwd_lib = lib
     return _bwd_lib
+
+
+def fwd_occupancy(lq: int, lk: int, d: int):
+    """(bytes of shared memory per block, blocks resident per SM) of the
+    forward kernel at (lq, lk, d) with a flat row per block, the latter from
+    the CUDA occupancy API."""
+    lib = load_kernel()
+    n = lib.t5_attention_fwd_blocks_per_sm(lq, lk, d)
+    if n < 0:
+        msg = lib.t5_attention_fwd_error_string(-n).decode()
+        raise RuntimeError(f"t5_attention_fwd occupancy query failed: {msg} ({-n})")
+    return lib.t5_attention_fwd_smem_bytes(lk, d), n
 
 
 def bwd_occupancy(lq: int, lk: int, d: int):
@@ -237,6 +251,8 @@ def _launch(qf, kf, vf, h, pos_bias, kv_mask, dmask, causal):
     global launches
     hb, lq, d = qf.shape
     lk = kf.shape[1]
+    if d > _MAX_D:
+        raise ValueError(f"t5_attention_fwd: D={d} is above the kernel's {_MAX_D}")
     lib = load_kernel()
     smem = lib.t5_attention_fwd_smem_bytes(lk, d)
     if smem > _MAX_SMEM:
@@ -276,8 +292,8 @@ def _launch_bwd(qf, kf, vf, h, pos_bias, kv_mask, dmask, do, causal, need_dbias)
     global bwd_launches
     hb, lq, d = qf.shape
     lk = kf.shape[1]
-    if d > _BWD_MAX_D:
-        raise ValueError(f"t5_attention_bwd: D={d} is above the kernel's {_BWD_MAX_D}")
+    if d > _MAX_D:
+        raise ValueError(f"t5_attention_bwd: D={d} is above the kernel's {_MAX_D}")
     lib = load_bwd_kernel()
     smem = lib.t5_attention_bwd_smem_bytes(lq, lk, d)
     if smem > _MAX_SMEM:
