@@ -28,7 +28,11 @@ which asserts; any failure exits non-zero and prints no result:
    flash forward (out and lse within 1e-5) and its dq and dk/dv kernels
    (within 1e-4·max|plain| + 1e-5) at the long-context SASRec shapes (B·H
    128 at L=2048, 16 at L=4096, causal) and edge cases (D=64 with a bias,
-   L=128, lq ≠ lk, D=128);
+   L=128, lq ≠ lk, D=128, a ragged D=24), dq, dk and dv bit-identical
+   between two calls at L=2048 and, on 8 of its flat rows, their distance
+   from the f64 backward beside the plain f32 version's; the backward
+   kernels' shared memory, blocks per SM, registers and spills (none at
+   D=16); each flash kernel's f32 and 3xTF32 bounds;
 4. one train step of ``TIGERConfig()`` at B=16 and dropout 0 on the card
    against the same step on the CPU in f64 (see ``phase_train_step_parity``):
    loss within 1e-5, every gradient within the backward's bound;
@@ -143,7 +147,9 @@ def device_ms(fn, iters: int = 20) -> float:
     """Mean device time of ``fn``: the durations of the device operations it
     ran, from torch.profiler, without the host's gaps between launches. At
     small shapes the CUDA-event time of back-to-back calls is the host's time
-    per call; this is the card's."""
+    per call; this is the card's. If three traces in a row hold no device
+    events (it has happened on a fresh machine), the CUDA-event time per call
+    stands in, and a line says so."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -156,7 +162,9 @@ def device_ms(fn, iters: int = 20) -> float:
         us = sum(e.time_range.elapsed_us() for e in device_events(prof))
         if us > 0:
             return us / iters / 1e3
-    raise AssertionError("the profiler recorded no device time in 3 tries")
+    print("[profile] 3 traces held no device events: CUDA-event ms per call in place of "
+          "device ms")
+    return cuda_ms(fn, iters)
 
 
 def attention_case(name, h, b, lq, lk, d, *, causal=False, bias=True, pad=True,
@@ -802,20 +810,35 @@ def _unmasked_scores(a) -> int:
 def flash_bounds(a) -> dict:
     """Least time on the card for each flash kernel's work, from this run's
     inputs: each input read once and each output written once at the HBM
-    rate, against the f32 operations per unmasked score at the f32 rate
-    outside the tensor cores: forward 4·D + 5 (q·k, p·v; max, subtract, exp,
-    sum, rescale) + 1 with a bias; dq 6·D + 4 (q·k, do·v, ds·k; exp,
-    subtract, subtract, multiply); dk/dv 8·D + 4 (q·k, do·v, p·do, ds·q)."""
+    rate, against the operations per unmasked score: forward 4·D products
+    (q·k, p·v) and 5 more (max, subtract, exp, sum, rescale) + 1 with a bias;
+    dq 6·D products (q·k, do·v, ds·k) and 4 more (exp, subtract, subtract,
+    multiply); dk/dv 8·D products (q·k, do·v, p·do, ds·q) and 4 more.
+
+    For each kernel two bounds, as :func:`bwd_bound_ms` gives: ``"f32"``
+    counts every operation at the f32 rate outside the tensor cores;
+    ``"tf32x3"`` counts the products at the 3xTF32 tensor-core rate (495/3
+    TFLOP/s), as the backward kernels compute them, and the rest at the f32
+    rate, the two pipes overlapping. Each is (ms, what bounds it)."""
     bh, lq, d = a["qf"].shape
     lk = a["kf"].shape[1]
     n = _unmasked_scores(a)
     qb, kb, rowb = bh * lq * d * 4, bh * lk * d * 4, bh * lq * 4
     bias_b = 0 if a["bias"] is None else a["bias"].numel() * 4
-    return {
-        "fwd": _bound(2 * qb + 2 * kb + rowb + bias_b, n * (4 * d + 5 + (a["bias"] is not None))),
-        "dq": _bound(3 * qb + 2 * kb + 2 * rowb, n * (6 * d + 4)),      # q, do, dq; k, v
-        "dkv": _bound(2 * qb + 4 * kb + 2 * rowb, n * (8 * d + 4)),     # q, do; k, v, dk, dv
+    work = {  # bytes, products per score, other operations per score
+        "fwd": (2 * qb + 2 * kb + rowb + bias_b, 4 * d, 5 + (a["bias"] is not None)),
+        "dq": (3 * qb + 2 * kb + 2 * rowb, 6 * d, 4),     # q, do, dq; k, v; lse, delta
+        "dkv": (2 * qb + 4 * kb + 2 * rowb, 8 * d, 4),    # q, do; k, v, dk, dv; lse, delta
     }
+    out = {}
+    for key, (nbytes, prods, rest) in work.items():
+        times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "tensor cores": n * prods / TF32X3_OPS_PER_S * 1e3,
+                 "f32 operations": n * rest / F32_OPS_PER_S * 1e3}
+        by = max(times, key=times.get)
+        out[key] = {"f32": _bound(nbytes, n * (prods + rest)),
+                    "tf32x3": (times[by], "bytes" if by == "bytes" else "operations")}
+    return out
 
 
 def _sdpa_fwd_bwd(a):
@@ -846,15 +869,80 @@ def _worst(got, want):
     return rel, absolute
 
 
+FLASH_DS = (16, 32, 64, 128)  # the backward kernels' instantiations: D padded to these
+FLASH_F64_BH = 8               # flat rows of each case held against the f64 backward
+FLASH_F64_RATIO = 1.25         # dq, dk, dv: max distance from f64 <= this x the plain f32
+# version's, at every case. Both are f32-accurate; their largest errors, each at one
+# element of 8 rows, differ by chance between two sound orders of work, so the ceiling is
+# not 1. The kernels' worst is 1.13x (dq at small_128). ex2.approx on every tile, the
+# diagonal's included, put dq at 1.33x at long_2048 and fails it.
+
+
+def flash_bwd_build_report() -> dict:
+    """Shared memory, blocks per SM (CUDA occupancy API), registers and local
+    memory per thread (cudaFuncGetAttributes, from the loaded library, built
+    now or earlier) of each instantiation of the flash backward kernels, and
+    ptxas's spill bytes when this run built the library; the D=16 ones must
+    use no local memory, so spill nothing. Returns {"dq": {D: {...}}, "dkv": {...}}."""
+    from genrec_tpu_torch.ops import _build
+    from genrec_tpu_torch.ops import attention as fa
+
+    log = _build.build_log.get("flash_attention_bwd")
+    out = {}
+    for key, kernel in (("dq", "flash_bwd_dq_kernel"), ("dkv", "flash_bwd_dkv_kernel")):
+        ptxas = ptxas_report(log[1], kernel) if log else {}
+        out[key] = {}
+        for d, nd in zip(FLASH_DS, (2, 4, 8, 16)):
+            r = fa.bwd_occupancy(d)[key]
+            found = [v for k, v in ptxas.items() if f"ILi{nd}E" in k]
+            r["spill_stores"], r["spill_loads"] = found[0][1:] if found else (None, None)
+            out[key][d] = r
+            print(f"[flash] {kernel}<D={d}>: {r['smem_bytes']} bytes of shared memory per "
+                  f"block, {r['blocks_per_sm']} blocks resident per SM, {r['registers']} "
+                  f"registers, {r['local_bytes']} bytes of local memory per thread; ptxas "
+                  f"spill stores/loads {r['spill_stores']}/{r['spill_loads']} bytes"
+                  + ("" if log else " (library built before this run)"))
+        assert out[key][16]["local_bytes"] == 0, f"{kernel}<D=16> uses local memory (spills)"
+    return out
+
+
+def flash_bwd_f64_errors(a, rows: int = FLASH_F64_BH) -> dict:
+    """max|x − f64| / max|f64| of dq, dk and dv on the first ``rows`` flat rows
+    of a case: the kernels' and the plain f32 versions' against the plain
+    backward in f64 on the same inputs (lse and delta as the f32 values given)."""
+    from genrec_tpu_torch.ops import attention as fa
+
+    args = [a[k][:rows].contiguous() for k in ("qf", "kf", "vf", "do", "lse", "delta")]
+    kw = dict(causal=a["causal"])
+    exact = (fa.flash_attention_bwd_dq_reference(*[x.double() for x in args], **kw),
+             *fa.flash_attention_bwd_dkv_reference(*[x.double() for x in args], **kw))
+    runs = {"kernel": (fa.flash_attention_bwd_dq(*args, **kw),
+                       *fa.flash_attention_bwd_dkv(*args, **kw)),
+            "plain_f32": (fa.flash_attention_bwd_dq_reference(*args, **kw),
+                          *fa.flash_attention_bwd_dkv_reference(*args, **kw))}
+    out = {name: {g: (x.double() - e).abs().max().item() / e.abs().max().item()
+                  for g, x, e in zip(("dq", "dk", "dv"), xs, exact)}
+           for name, xs in runs.items()}
+    del exact, runs
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_flash(timed=True):
     """Kernels #3-#6 (the flash forward, dq and dk/dv kernels) against their
     plain versions on the card: the forward's out and lse within 1e-5 max
     abs, dq, dk and dv within 1e-4·max|plain| + 1e-5 (f32, other summation
     orders), at the long-context SASRec shapes (B·H = 32·4 at L=2048, 16 at
     L=4096; the plain version's score tensor at B·H = 64 would be 4.3 GB)
-    and at edge cases; then times of each kernel, its plain version and SDPA."""
+    and at edge cases (a bias, L=128, lq ≠ lk, D=128, a ragged D=24, D=30
+    staged 4 bytes at a time); dq, dk and dv bit-identical between two calls
+    at L=2048; at every case, on 8 flat rows, each backward kernel's distance
+    from the f64 backward within FLASH_F64_RATIO of the plain f32 version's;
+    the backward kernels' shared memory, blocks per SM, registers and spills;
+    then times of each kernel, its plain version and SDPA, and both bounds."""
     from genrec_tpu_torch.ops import attention as fa
 
+    build = flash_bwd_build_report()
     cases = [
         flash_case("long_2048", LC_B * 4, LC_L, LC_L, 16, causal=True, seed=21),
         flash_case("long_4096", 16, LC_L2, LC_L2, 16, causal=True, seed=22),
@@ -862,6 +950,9 @@ def phase_flash(timed=True):
         flash_case("small_128", 4, 128, 128, 16, causal=False, seed=24),
         flash_case("lq!=lk_256x512", 4, 256, 512, 16, causal=False, seed=25),
         flash_case("d128_256", 2, 256, 256, 128, causal=True, seed=26),
+        flash_case("d24_causal_256", 4, 256, 256, 24, causal=True, seed=27),  # ragged D
+        # D % 4 != 0: rows are not 16-byte aligned, so tiles are staged 4 bytes at a time
+        flash_case("d30_causal_256", 4, 256, 256, 30, causal=True, seed=28),
     ]
     results = {}
     for name, a in cases:
@@ -891,7 +982,22 @@ def phase_flash(timed=True):
               f"bias={a['bias'] is not None}: fwd out/lse max abs {errs[0]:.2e}/{errs[1]:.2e}; "
               f"dq max abs {abs_dq:.2e} (max|plain| {w_dq.abs().max().item():.3e}), dk/dv "
               f"{abs_dkv:.2e} (max|plain| {max(w.abs().max().item() for w in w_dkv):.3e})")
+        if name == "long_2048":
+            again_dq, again_dkv = dq(), dkv()
+            same = [torch.equal(x, y) for x, y in zip((g_dq, *g_dkv), (again_dq, *again_dkv))]
+            assert all(same), f"{name}: two calls differ in (dq, dk, dv): {same}"
+            print(f"[flash] {name}: dq, dk and dv bit-identical between two calls")
+            del again_dq, again_dkv
         del got, want, g_dq, w_dq, g_dkv, w_dkv
+        f64 = r["f64_err"] = flash_bwd_f64_errors(a)
+        print(f"[flash] {name}, first {FLASH_F64_BH} flat rows, max|x - f64| / max|f64| of "
+              f"dq, dk, dv: " + "; ".join(
+                  f"{who} " + " ".join(f"{e:.3e}" for e in errs.values())
+                  for who, errs in f64.items()))
+        for g, e in f64["kernel"].items():
+            assert e <= FLASH_F64_RATIO * f64["plain_f32"][g], (
+                f"{name}: {g} lies {e:.3e} from f64, the plain f32 version "
+                f"{f64['plain_f32'][g]:.3e} (> {FLASH_F64_RATIO}x)")
         if timed:
             lib_fwd, lib_bwd = _sdpa_fwd_bwd(a)
             iters = 5 if q.shape[1] >= 2048 else 20
@@ -905,19 +1011,23 @@ def phase_flash(timed=True):
                 r[key + "_device_ms"] = device_ms(fn, iters)
             torch.cuda.empty_cache()
             b = r["bounds"]
+
+            def bound(key):
+                (t3, by3), (t1, by1) = b[key]["tf32x3"], b[key]["f32"]
+                return f"bound {t3:.4f} ({by3}, 3xTF32 products), f32 {t1:.4f} ({by1})"
             print(f"[flash]   per call ms (device ms): fwd {r['fwd_ms']:.4f} "
                   f"({r['fwd_device_ms']:.4f}), plain {r['fwd_plain_ms']:.4f} "
                   f"({r['fwd_plain_device_ms']:.4f}), SDPA {r['fwd_library_ms']:.4f} "
-                  f"({r['fwd_library_device_ms']:.4f}), bound {b['fwd'][0]:.4f} ({b['fwd'][1]})")
+                  f"({r['fwd_library_device_ms']:.4f}), {bound('fwd')}")
             print(f"[flash]   dq {r['dq_ms']:.4f} ({r['dq_device_ms']:.4f}), plain "
-                  f"{r['dq_plain_ms']:.4f}, bound {b['dq'][0]:.4f} ({b['dq'][1]}); dk/dv "
-                  f"{r['dkv_ms']:.4f} ({r['dkv_device_ms']:.4f}), plain {r['dkv_plain_ms']:.4f}, "
-                  f"bound {b['dkv'][0]:.4f} ({b['dkv'][1]}); whole plain backward "
-                  f"{r['bwd_plain_ms']:.4f} ({r['bwd_plain_device_ms']:.4f}), SDPA backward "
-                  f"{r['bwd_library_ms']:.4f} ({r['bwd_library_device_ms']:.4f})")
+                  f"{r['dq_plain_ms']:.4f}, {bound('dq')}; dk/dv {r['dkv_ms']:.4f} "
+                  f"({r['dkv_device_ms']:.4f}), plain {r['dkv_plain_ms']:.4f}, {bound('dkv')}; "
+                  f"whole plain backward {r['bwd_plain_ms']:.4f} "
+                  f"({r['bwd_plain_device_ms']:.4f}), SDPA backward {r['bwd_library_ms']:.4f} "
+                  f"({r['bwd_library_device_ms']:.4f})")
         results[name] = r
         torch.cuda.empty_cache()
-    return results
+    return results, build
 
 
 def _flash_counts():
@@ -1577,10 +1687,13 @@ def profile_window(label, work, reps: int = 3, top_n: int = 6):
     return busy_us / reps, wall_us / reps
 
 
-def flash_records(flash, lc_serve, lc_train):
+def flash_records(flash, build, lc_serve, lc_train):
     """The JSON records of kernels #3-#6 (three CUDA kernels), timed at the
     long-context train shape (B·H 128, L 2048, D 16, causal); launches from
-    the long-context serving and training paths."""
+    the long-context serving and training paths. As in the T5 records,
+    ``bound_ms`` counts the products at the 3xTF32 tensor-core rate (also
+    under ``bound_tf32x3_ms``) and ``bound_ms_f32`` every operation at the
+    f32 SIMT rate."""
     at_2048, at_4096 = flash["long_2048"], flash["long_4096"]
     runs = dict(zip(("train_2048", "train_4096", "train_dropout"), lc_train["counts"]))
     kernels = (  # name, result key, source, Pallas kernels replaced, index into the counts
@@ -1597,20 +1710,32 @@ def flash_records(flash, lc_serve, lc_train):
         by_path = {"serve": lc_serve["fwd"] if i == 0 else 0,
                    **{path: counts[i] for path, counts in runs.items()}}
         lib = "fwd_library" if key == "fwd" else "bwd_library"
-        recs.append({
+        bounds = at_2048["bounds"][key]
+        rec = {
             "name": name, "route": "cuda", "source": f"genrec_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(r[f"{key}_err"] for r in flash.values()),
             "ms": at_2048[f"{key}_ms"], "plain_ms": at_2048[f"{key}_plain_ms"],
-            "bound_ms": at_2048["bounds"][key][0], "bound_by": at_2048["bounds"][key][1],
+            "bound_ms": bounds["tf32x3"][0], "bound_by": bounds["tf32x3"][1],
+            "bound_ms_f32": bounds["f32"][0], "bound_by_f32": bounds["f32"][1],
+            "bound_tf32x3_ms": bounds["tf32x3"][0],
             "library_ms": at_2048[f"{lib}_ms"], "shape": "q/k/v (32*4, 2048, 16) f32, causal",
             "device_ms": at_2048[f"{key}_device_ms"],
             "plain_device_ms": at_2048[f"{key}_plain_device_ms"],
             "library_device_ms": at_2048[f"{lib}_device_ms"],
             "library_note": ("SDPA forward" if key == "fwd"
                              else "SDPA backward: dq, dk and dv in one call"),
-            "ms_4096": at_4096[f"{key}_ms"], "bound_ms_4096": at_4096["bounds"][key][0]})
+            "ms_4096": at_4096[f"{key}_ms"], "device_ms_4096": at_4096[f"{key}_device_ms"],
+            "bound_ms_4096": at_4096["bounds"][key]["tf32x3"][0],
+            "bound_ms_f32_4096": at_4096["bounds"][key]["f32"][0]}
+        if key in build:
+            d16 = build[key][16]
+            rec.update(smem_bytes_d16=d16["smem_bytes"], blocks_per_sm_d16=d16["blocks_per_sm"],
+                       registers_d16=d16["registers"], local_bytes_d16=d16["local_bytes"],
+                       f64_err_slice=at_2048["f64_err"]["kernel"],
+                       plain_f64_err_slice=at_2048["f64_err"]["plain_f32"])
+        recs.append(rec)
     return recs
 
 
@@ -1630,7 +1755,7 @@ def main() -> int:
     results, ptxas = phase_kernels()
     bwd = phase_bwd_kernels()
     reduce = phase_dbias_reduce()
-    flash = phase_flash()
+    flash, flash_build = phase_flash()
     tr, te, codes = train_corpus()
     phase_train_step_parity(tr)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1718,7 +1843,8 @@ def main() -> int:
           f"B={LC_B}, {lc_train['ms_step']:.2f} ms/train step at B={LC_B}, "
           f"{lc_train['examples_s']:.1f} examples/s, busy share {lc_train['busy']}; "
           f"{time.perf_counter() - t_start:.1f} s")
-    kernels = [fwd_record, bwd_record, reduce_record] + flash_records(flash, lc_serve, lc_train)
+    kernels = [fwd_record, bwd_record, reduce_record] + flash_records(flash, flash_build,
+                                                                      lc_serve, lc_train)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

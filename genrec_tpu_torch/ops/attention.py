@@ -76,10 +76,37 @@ def load_bwd_kernel():
         lib.flash_attention_bwd_dq.restype = ctypes.c_int
         lib.flash_attention_bwd_dkv.argtypes = [p] * 8 + [i] * 5 + [f, p]
         lib.flash_attention_bwd_dkv.restype = ctypes.c_int
+        lib.flash_attention_bwd_smem_bytes.argtypes = [i, i]
+        lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_size_t
+        lib.flash_attention_bwd_blocks_per_sm.argtypes = [i, i]
+        lib.flash_attention_bwd_blocks_per_sm.restype = ctypes.c_int
+        ip = ctypes.POINTER(i)
+        lib.flash_attention_bwd_registers.argtypes = [i, i, ip, ip]
+        lib.flash_attention_bwd_registers.restype = ctypes.c_int
         lib.flash_attention_bwd_error_string.argtypes = [i]
         lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
         _bwd_lib = lib
     return _bwd_lib
+
+
+def bwd_occupancy(d: int):
+    """{"dq": {...}, "dkv": {...}} of the backward kernels at width ``d``:
+    ``smem_bytes`` per block, ``blocks_per_sm`` (the CUDA occupancy API),
+    ``registers`` per thread and ``local_bytes`` per thread (spills and stack,
+    cudaFuncGetAttributes), as the loaded build has them."""
+    lib = load_bwd_kernel()
+    out = {}
+    for name, which in (("dq", 1), ("dkv", 0)):
+        n = lib.flash_attention_bwd_blocks_per_sm(which, d)
+        regs, local = ctypes.c_int(), ctypes.c_int()
+        err = -n if n < 0 else lib.flash_attention_bwd_registers(
+            which, d, ctypes.byref(regs), ctypes.byref(local))
+        if err:
+            msg = lib.flash_attention_bwd_error_string(err).decode()
+            raise RuntimeError(f"flash_attention_bwd attribute query failed: {msg} ({err})")
+        out[name] = dict(smem_bytes=lib.flash_attention_bwd_smem_bytes(which, d),
+                         blocks_per_sm=n, registers=regs.value, local_bytes=local.value)
+    return out
 
 
 def _acc(t):

@@ -11,8 +11,10 @@ with the CUDA toolkit:
     python3 -m genrec_tpu_torch.tools.sass_loops genrec_tpu_torch/csrc/t5_attention_bwd.cu \\
         --kernel 't5_attention_bwd_kernelILi2E'
 
-The source may be any copy of a kernel file, so two versions can be held
-side by side.
+With ``--nested`` it also prints each loop that holds other loops, counting
+only the instructions outside them (a loop over tiles whose inner tile loop
+was unrolled, say). The source may be any copy of a kernel file, so two
+versions can be held side by side.
 """
 
 from __future__ import annotations
@@ -41,9 +43,11 @@ def sass(source: str) -> str:
                               text=True).stdout
 
 
-def loops(function_text: str):
+def loops(function_text: str, nested: bool = False):
     """(start, end, instructions, opcode counts) of each innermost loop (one
-    that holds no other loop) with an HMMA."""
+    that holds no other loop) with an HMMA. With ``nested``, every loop with
+    an HMMA outside its inner loops, counting only those instructions: the
+    loop's own work per trip, its inner loops left out."""
     code = [(int(m.group(1), 16), m.group(2)) for m in map(_LINE.match,
                                                             function_text.split("\n")) if m]
     index = {addr: i for i, (addr, _) in enumerate(code)}
@@ -53,9 +57,11 @@ def loops(function_text: str):
         if m and int(m.group(1), 16) < addr:
             spans.append((int(m.group(1), 16), addr))
     for start, end in spans:
-        if any(start <= s and e <= end and (s, e) != (start, end) for s, e in spans):
+        inner = [(s, e) for s, e in spans if start <= s and e <= end and (s, e) != (start, end)]
+        if inner and not nested:
             continue
-        body = [text for _, text in code[index.get(start, 0):index[end] + 1]]
+        body = [text for addr, text in code[index.get(start, 0):index[end] + 1]
+                if not any(s <= addr <= e for s, e in inner)]
         ops = collections.Counter(re.sub(r"^@!?U?P\w+\s+", "", x).split()[0].split(".")[0]
                                   for x in body)
         if ops["HMMA"]:
@@ -66,6 +72,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("source")
     ap.add_argument("--kernel", default="", help="substring of the mangled kernel name")
+    ap.add_argument("--nested", action="store_true",
+                    help="also loops that hold other loops, counting their own instructions")
     args = ap.parse_args()
     for function in re.split(r"\n\s*Function : ", sass(args.source))[1:]:
         name = function.split("\n")[0].strip()
@@ -73,7 +81,7 @@ def main() -> int:
             continue
         n = sum(1 for line in function.split("\n") if _LINE.match(line))
         print(f"{name}: {n} instructions")
-        for start, end, length, ops in loops(function):
+        for start, end, length, ops in loops(function, args.nested):
             top = ", ".join(f"{k} {v}" for k, v in ops.most_common(10))
             print(f"  loop {start:#07x}-{end:#07x}: {length} instructions, HMMA {ops['HMMA']}; "
                   f"{top}")
