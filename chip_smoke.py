@@ -27,12 +27,13 @@ which asserts; any failure exits non-zero and prints no result:
    kernel bit-equal to its plain version; the
    flash forward (out and lse within 1e-5) and its dq and dk/dv kernels
    (within 1e-4·max|plain| + 1e-5) at the long-context SASRec shapes (B·H
-   128 at L=2048, 16 at L=4096, causal) and edge cases (D=64 with a bias,
-   L=128, lq ≠ lk, D=128, a ragged D=24), dq, dk and dv bit-identical
-   between two calls at L=2048 and, on 8 of its flat rows, their distance
-   from the f64 backward beside the plain f32 version's; the backward
-   kernels' shared memory, blocks per SM, registers and spills (none at
-   D=16); each flash kernel's f32 and 3xTF32 bounds;
+   128 at L=2048, 16 at L=4096, causal) and edge cases (a bias at D=64 and
+   D=16, L=128, lq ≠ lk, D=128, a ragged D=24), out, lse, dq, dk and dv
+   bit-identical between two calls at L=2048 and, on 8 flat rows of every
+   case, their distance from the f64 forward and backward beside the plain
+   f32 version's; every flash kernel's shared memory, blocks per SM,
+   registers and spills (none at D=16); each flash kernel's f32 and 3xTF32
+   bounds;
 4. one train step of ``TIGERConfig()`` at B=16 and dropout 0 on the card
    against the same step on the CPU in f64 (see ``phase_train_step_parity``):
    loss within 1e-5, every gradient within the backward's bound;
@@ -46,8 +47,9 @@ which asserts; any failure exits non-zero and prints no result:
 7. drive the long-context SASRec (``long_context_sasrec_config(2048, 64)``,
    random weights): ``predict_topk`` over B=1 requests and a B=32 batch,
    held against the CPU; one B=2 train step against an f64 CPU step through
-   the kernels' plain versions; 20 train steps at B=32 with a falling loss,
-   3 at L=4096 and B=16, 2 at the config's dropout 0.2 (no flash launch);
+   the kernels' plain versions, with the card's ReLU decisions; 20 train
+   steps at B=32 with a falling loss, 3 at L=4096 and B=16, 2 at the
+   config's dropout 0.2 (no flash launch);
 8. drive the parity SASRec: ``sasrec_pipeline.train`` (2 epochs) and
    ``evaluate`` on a 4096-user corpus, requests through ``sasrec_model_fn``
    (L=20: no flash launch);
@@ -869,10 +871,10 @@ def _worst(got, want):
     return rel, absolute
 
 
-FLASH_DS = (16, 32, 64, 128)  # the backward kernels' instantiations: D padded to these
-FLASH_F64_BH = 8               # flat rows of each case held against the f64 backward
-FLASH_F64_RATIO = 1.25         # dq, dk, dv: max distance from f64 <= this x the plain f32
-# version's, at every case. Both are f32-accurate; their largest errors, each at one
+FLASH_DS = (16, 32, 64, 128)  # the flash kernels' instantiations: D padded to these
+FLASH_F64_BH = 8               # flat rows of each case held against the f64 forward, backward
+FLASH_F64_RATIO = 1.25         # out, lse, dq, dk, dv: max distance from f64 <= this x the
+# plain f32 version's, at every case. Both are f32-accurate; their largest errors, each at one
 # element of 8 rows, differ by chance between two sound orders of work, so the ceiling is
 # not 1. The kernels' worst is 1.13x (dq at small_128). ex2.approx on every tile, the
 # diagonal's included, put dq at 1.33x at long_2048 and fails it.
@@ -906,6 +908,55 @@ def flash_bwd_build_report() -> dict:
     return out
 
 
+def flash_fwd_build_report() -> dict:
+    """Shared memory, blocks per SM, registers and local memory per thread of
+    each instantiation of the flash forward kernel (without and with a bias),
+    as :func:`flash_bwd_build_report` gives them for the backward; the D=16
+    ones must use no local memory. Returns {D: {...the bias-free build...,
+    "bias": {...}}}."""
+    from genrec_tpu_torch.ops import _build
+    from genrec_tpu_torch.ops import attention as fa
+
+    log = _build.build_log.get("flash_attention_fwd")
+    ptxas = ptxas_report(log[1], "flash_fwd_kernel") if log else {}
+    out = {}
+    for d, nd in zip(FLASH_DS, (2, 4, 8, 16)):
+        occ = fa.fwd_occupancy(d)
+        for key, r in occ.items():
+            found = [v for k, v in ptxas.items() if f"ILi{nd}ELb{int(key == 'bias')}E" in k]
+            r["spill_stores"], r["spill_loads"] = found[0][1:] if found else (None, None)
+            print(f"[flash] flash_fwd_kernel<D={d}, {key}>: {r['smem_bytes']} bytes of shared "
+                  f"memory per block, {r['blocks_per_sm']} blocks resident per SM, "
+                  f"{r['registers']} registers, {r['local_bytes']} bytes of local memory per "
+                  f"thread; ptxas spill stores/loads {r['spill_stores']}/{r['spill_loads']} "
+                  "bytes" + ("" if log else " (library built before this run)"))
+        out[d] = {**occ["plain"], "bias": occ["bias"]}
+    for key in ("plain", "bias"):
+        r = out[16] if key == "plain" else out[16]["bias"]
+        assert r["local_bytes"] == 0, f"flash_fwd_kernel<D=16, {key}> uses local memory (spills)"
+    return out
+
+
+def flash_fwd_f64_errors(a, rows: int = FLASH_F64_BH) -> dict:
+    """max|x − f64| / max|f64| of the forward's out and lse on the first
+    ``rows`` flat rows of a case: the kernel's and the plain f32 version's
+    against the plain forward in f64 on the same inputs."""
+    from genrec_tpu_torch.ops import attention as fa
+
+    args = [None if a[k] is None else a[k][:rows].contiguous() for k in ("qf", "kf", "vf", "bias")]
+    kw = dict(causal=a["causal"])
+    exact = fa.flash_attention_fwd_reference(*[None if x is None else x.double() for x in args],
+                                             **kw)
+    runs = {"kernel": fa.flash_attention_fwd(*args, **kw),
+            "plain_f32": fa.flash_attention_fwd_reference(*args, **kw)}
+    out = {name: {g: (x.double() - e).abs().max().item() / e.abs().max().item()
+                  for g, x, e in zip(("out", "lse"), xs, exact)}
+           for name, xs in runs.items()}
+    del exact, runs
+    torch.cuda.empty_cache()
+    return out
+
+
 def flash_bwd_f64_errors(a, rows: int = FLASH_F64_BH) -> dict:
     """max|x − f64| / max|f64| of dq, dk and dv on the first ``rows`` flat rows
     of a case: the kernels' and the plain f32 versions' against the plain
@@ -934,19 +985,21 @@ def phase_flash(timed=True):
     abs, dq, dk and dv within 1e-4·max|plain| + 1e-5 (f32, other summation
     orders), at the long-context SASRec shapes (B·H = 32·4 at L=2048, 16 at
     L=4096; the plain version's score tensor at B·H = 64 would be 4.3 GB)
-    and at edge cases (a bias, L=128, lq ≠ lk, D=128, a ragged D=24, D=30
-    staged 4 bytes at a time); dq, dk and dv bit-identical between two calls
-    at L=2048; at every case, on 8 flat rows, each backward kernel's distance
-    from the f64 backward within FLASH_F64_RATIO of the plain f32 version's;
-    the backward kernels' shared memory, blocks per SM, registers and spills;
-    then times of each kernel, its plain version and SDPA, and both bounds."""
+    and at edge cases (a bias at D=64 and at D=16, L=128, lq ≠ lk, D=128, a
+    ragged D=24, D=30 staged 4 bytes at a time); out, lse, dq, dk and dv
+    bit-identical between two calls at L=2048; at every case, on 8 flat rows,
+    each kernel's distance from the f64 forward or backward within
+    FLASH_F64_RATIO of the plain f32 version's; every flash kernel's shared
+    memory, blocks per SM, registers and spills; then times of each kernel,
+    its plain version and SDPA, and both bounds."""
     from genrec_tpu_torch.ops import attention as fa
 
-    build = flash_bwd_build_report()
+    build = {**flash_bwd_build_report(), "fwd": flash_fwd_build_report()}
     cases = [
         flash_case("long_2048", LC_B * 4, LC_L, LC_L, 16, causal=True, seed=21),
         flash_case("long_4096", 16, LC_L2, LC_L2, 16, causal=True, seed=22),
         flash_case("bias_512_d64", 8, 512, 512, 64, causal=False, bias=True, seed=23),
+        flash_case("bias_512_d16", 8, 512, 512, 16, causal=False, bias=True, seed=29),
         flash_case("small_128", 4, 128, 128, 16, causal=False, seed=24),
         flash_case("lq!=lk_256x512", 4, 256, 512, 16, causal=False, seed=25),
         flash_case("d128_256", 2, 256, 256, 128, causal=True, seed=26),
@@ -983,12 +1036,25 @@ def phase_flash(timed=True):
               f"dq max abs {abs_dq:.2e} (max|plain| {w_dq.abs().max().item():.3e}), dk/dv "
               f"{abs_dkv:.2e} (max|plain| {max(w.abs().max().item() for w in w_dkv):.3e})")
         if name == "long_2048":
+            again = fwd()
+            same = [torch.equal(x, y) for x, y in zip(got, again)]
+            assert all(same), f"{name}: two forward calls differ in (out, lse): {same}"
+            print(f"[flash] {name}: forward out and lse bit-identical between two calls")
+            del again
             again_dq, again_dkv = dq(), dkv()
             same = [torch.equal(x, y) for x, y in zip((g_dq, *g_dkv), (again_dq, *again_dkv))]
             assert all(same), f"{name}: two calls differ in (dq, dk, dv): {same}"
             print(f"[flash] {name}: dq, dk and dv bit-identical between two calls")
             del again_dq, again_dkv
         del got, want, g_dq, w_dq, g_dkv, w_dkv
+        f64 = r["fwd_f64_err"] = flash_fwd_f64_errors(a)
+        print(f"[flash] {name}, first {FLASH_F64_BH} flat rows, max|x - f64| / max|f64| of "
+              f"out, lse: " + "; ".join(f"{who} " + " ".join(f"{e:.3e}" for e in errs.values())
+                                        for who, errs in f64.items()))
+        for g, e in f64["kernel"].items():
+            assert e <= FLASH_F64_RATIO * f64["plain_f32"][g], (
+                f"{name}: forward {g} lies {e:.3e} from f64, the plain f32 version "
+                f"{f64['plain_f32'][g]:.3e} (> {FLASH_F64_RATIO}x)")
         f64 = r["f64_err"] = flash_bwd_f64_errors(a)
         print(f"[flash] {name}, first {FLASH_F64_BH} flat rows, max|x - f64| / max|f64| of "
               f"dq, dk, dv: " + "; ".join(
@@ -1124,7 +1190,15 @@ def phase_sasrec_large_train_parity():
     0 on the card (flash kernels) against the same step on the CPU in f64,
     its attention forced through the flash Function (the kernels' plain
     versions, in f64): loss within LOSS_REL, every gradient within
-    BWD_REL·max + TOL, on the same weights, inputs and negatives."""
+    BWD_REL·max + TOL, on the same weights, inputs and negatives.
+
+    As in :func:`phase_train_step_parity`, the f64 witness takes every ReLU
+    decision of the blocks' feed-forwards as the card took it (ff_out is fed
+    ff_in(x) times the card's recorded (ff_in(x) > 0) mask): the step has 2.1 M
+    pre-activations, and one within an f32 rounding of 0 that the card's f32
+    rounds to the other side moves a gradient by that position's whole
+    contribution, past its bound. The decisions that differ are counted, and
+    the distance from the f64 step with its own ReLU is printed, not held."""
     from genrec_tpu_torch.configs import long_context_sasrec_config
     from genrec_tpu_torch.models.sasrec_large import SASRecLarge, train_loss_sampled
     from genrec_tpu_torch.ops import attention as fa
@@ -1137,34 +1211,62 @@ def phase_sasrec_large_train_parity():
     inputs, targets = _lc_batch(np.random.default_rng(6), LC_PARITY_B, LC_L, item_num)
     neg = sample_negatives(torch.Generator().manual_seed(2), torch.cat([inputs, targets], 1),
                            item_num, cfg.num_neg_samples)
-    out = {}
-    for name, dev, dtype in (("card", "cuda", torch.float32), ("cpu_f64", "cpu", torch.float64)):
+    out, pre = {}, {}  # pre: run -> block -> ff_in(x) (f64, on the CPU)
+    for name, dev, dtype in (("card", "cuda", torch.float32),
+                             ("cpu_f64_own_relu", "cpu", torch.float64),
+                             ("cpu_f64", "cpu", torch.float64)):
         model = copy.deepcopy(base).to(dev, dtype).train()
         if dev == "cpu":
             for blk in model.blocks:
                 blk.attn_fn = functools.partial(fa.multi_head_attention, force_kernel=True)
+        seen, hooks, live = pre.setdefault(name, {}), [], {}
+        for i, blk in enumerate(model.blocks):
+            def keep(mod, args, h, i=i):  # returns None: the output stays as it is
+                seen[i] = h.detach().double().cpu()
+                live[i] = h
+            hooks.append(blk.ff_in.register_forward_hook(keep))
+            if name == "cpu_f64":  # the card's ReLU decisions; dropout is 0 here
+                mask = (pre["card"][i] > 0).double()
+                hooks.append(blk.ff_out.register_forward_pre_hook(
+                    lambda mod, args, i=i, mask=mask: (live[i] * mask,)))
         before = _flash_counts()
-        loss, _ = train_loss_sampled(model, inputs.to(dev), targets.to(dev), None, cfg,
-                                     item_num, neg=neg.to(dev))
-        loss.backward()
+        try:
+            loss, _ = train_loss_sampled(model, inputs.to(dev), targets.to(dev), None, cfg,
+                                         item_num, neg=neg.to(dev))
+            loss.backward()
+        finally:
+            for hook in hooks:
+                hook.remove()
         if dev == "cuda":
             torch.cuda.synchronize()
             got = tuple(x - y for x, y in zip(_flash_counts(), before))
             assert got == (cfg.num_blocks,) * 3, got
         out[name] = (loss.item(), {k: p.grad.double().cpu() for k, p in model.named_parameters()})
+    flips = [(h > 0) != (pre["card"][i] > 0) for i, h in pre["cpu_f64_own_relu"].items()]
+    near = [h[f].abs().max().item() for f, h in zip(flips, pre["cpu_f64_own_relu"].values())
+            if f.any()]
+    print(f"[sasrec-large train-step] ReLU decisions of the card's step against the f64 step's "
+          f"own: {sum(int(f.sum()) for f in flips)} of {sum(f.numel() for f in flips)} differ, "
+          f"the largest at |pre-activation| {max(near, default=0.0):.3e} (f64)")
     loss_ref, ref = out["cpu_f64"]
     loss_err = abs(out["card"][0] - loss_ref)
     assert loss_err <= LOSS_REL * abs(loss_ref), (
         f"long-context step loss card vs f64 CPU {loss_err} > {LOSS_REL}*{abs(loss_ref)}")
-    worst = (0.0, "")
-    for k, g_ref in ref.items():
-        err, scale = (out["card"][1][k] - g_ref).abs().max().item(), g_ref.abs().max().item()
-        assert err <= BWD_REL * scale + TOL, f"{k}: grad card vs f64 CPU {err} (max {scale})"
-        worst = max(worst, (err / (BWD_REL * scale + TOL), k))
+    worst = {}
+    for witness in ("cpu_f64", "cpu_f64_own_relu"):
+        worst[witness] = (0.0, "")
+        for k, g_ref in out[witness][1].items():
+            err, scale = (out["card"][1][k] - g_ref).abs().max().item(), g_ref.abs().max().item()
+            if witness == "cpu_f64":
+                assert err <= BWD_REL * scale + TOL, (
+                    f"{k}: grad card vs f64 CPU {err} (max {scale})")
+            worst[witness] = max(worst[witness], (err / (BWD_REL * scale + TOL), k))
     print(f"[sasrec-large train-step] B={LC_PARITY_B} L={LC_L} dropout 0: loss card "
           f"{out['card'][0]:.7f}, CPU f64 {loss_ref:.7f} (|diff| {loss_err:.2e}); {len(ref)} "
-          f"gradients against the f64 step, worst max_err at {100 * worst[0]:.1f}% of its bound "
-          f"({worst[1]})")
+          f"gradients against the f64 step with the card's ReLU decisions, worst max_err at "
+          f"{100 * worst['cpu_f64'][0]:.1f}% of its bound ({worst['cpu_f64'][1]}); printed, not "
+          f"held, against the f64 step with its own ReLU: "
+          f"{100 * worst['cpu_f64_own_relu'][0]:.1f}% ({worst['cpu_f64_own_relu'][1]})")
 
 
 def _lc_train(cfg, batch_size, steps, seed):
@@ -1731,10 +1833,10 @@ def flash_records(flash, build, lc_serve, lc_train):
             "bound_ms_f32_4096": at_4096["bounds"][key]["f32"][0]}
         if key in build:
             d16 = build[key][16]
+            f64 = at_2048["fwd_f64_err" if key == "fwd" else "f64_err"]
             rec.update(smem_bytes_d16=d16["smem_bytes"], blocks_per_sm_d16=d16["blocks_per_sm"],
                        registers_d16=d16["registers"], local_bytes_d16=d16["local_bytes"],
-                       f64_err_slice=at_2048["f64_err"]["kernel"],
-                       plain_f64_err_slice=at_2048["f64_err"]["plain_f32"])
+                       f64_err_slice=f64["kernel"], plain_f64_err_slice=f64["plain_f32"])
         recs.append(rec)
     return recs
 

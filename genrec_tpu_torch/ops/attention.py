@@ -60,6 +60,13 @@ def load_fwd_kernel():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_attention_fwd.argtypes = [p] * 6 + [i] * 5 + [f, p]
         lib.flash_attention_fwd.restype = ctypes.c_int
+        lib.flash_attention_fwd_smem_bytes.argtypes = [i]
+        lib.flash_attention_fwd_smem_bytes.restype = ctypes.c_size_t
+        lib.flash_attention_fwd_blocks_per_sm.argtypes = [i, i]
+        lib.flash_attention_fwd_blocks_per_sm.restype = ctypes.c_int
+        ip = ctypes.POINTER(i)
+        lib.flash_attention_fwd_registers.argtypes = [i, i, ip, ip]
+        lib.flash_attention_fwd_registers.restype = ctypes.c_int
         lib.flash_attention_fwd_error_string.argtypes = [i]
         lib.flash_attention_fwd_error_string.restype = ctypes.c_char_p
         _fwd_lib = lib
@@ -87,6 +94,27 @@ def load_bwd_kernel():
         lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
         _bwd_lib = lib
     return _bwd_lib
+
+
+def fwd_occupancy(d: int):
+    """{"plain": {...}, "bias": {...}} of the forward kernel at width ``d``,
+    without and with a bias (two instantiations): ``smem_bytes`` per block,
+    ``blocks_per_sm`` (the CUDA occupancy API), ``registers`` per thread and
+    ``local_bytes`` per thread (spills and stack, cudaFuncGetAttributes), as
+    the loaded build has them."""
+    lib = load_fwd_kernel()
+    out = {}
+    for name, bias in (("plain", 0), ("bias", 1)):
+        n = lib.flash_attention_fwd_blocks_per_sm(d, bias)
+        regs, local = ctypes.c_int(), ctypes.c_int()
+        err = -n if n < 0 else lib.flash_attention_fwd_registers(
+            d, bias, ctypes.byref(regs), ctypes.byref(local))
+        if err:
+            msg = lib.flash_attention_fwd_error_string(err).decode()
+            raise RuntimeError(f"flash_attention_fwd attribute query failed: {msg} ({err})")
+        out[name] = dict(smem_bytes=lib.flash_attention_fwd_smem_bytes(d), blocks_per_sm=n,
+                         registers=regs.value, local_bytes=local.value)
+    return out
 
 
 def bwd_occupancy(d: int):
