@@ -15,12 +15,15 @@ which asserts; any failure exits non-zero and prints no result:
    the kernel, the plain version and one PyTorch library call of the same
    function (CUDA events, and the profiler's device time): the T5 forward at
    the serving shapes, the three train shapes of ``TIGERConfig()`` at batch
-   256 with the f32 dropout mask and without it, and edge cases within 1e-5
+   256 and the encoder and cross-attention shapes of ``TIGERPrefixConfig()``
+   (8 heads, 83 encoder tokens) with the f32 dropout mask and without it, and
+   edge cases within 1e-5
    max abs (f32, another summation order), bit-identical between two calls,
    with its shared memory, blocks per SM, ptxas registers and spills and,
    stage by stage, its distance from the f64 forward; the T5 backward at the
    three train shapes of
-   ``TIGERConfig()`` at batch 256 and edge cases within 1e-4·max|plain| +
+   ``TIGERConfig()`` at batch 256, the two TIGER-prefix shapes and edge
+   cases within 1e-4·max|plain| +
    1e-5, bit-identical between two calls (dbias by an ordered reduction, no
    atomics), with its shared memory and blocks per SM and, stage by stage,
    where its distance from the f64 backward comes from; its dbias reduction
@@ -50,13 +53,21 @@ which asserts; any failure exits non-zero and prints no result:
    the kernels' plain versions, with the card's ReLU decisions; 20 train
    steps at B=32 with a falling loss, 3 at L=4096 and B=16, 2 at the
    config's dropout 0.2 (no flash launch);
-8. drive the parity SASRec: ``sasrec_pipeline.train`` (2 epochs) and
+8. drive the semantic-ID chain at full width: RQ-VAE (``RQVAEConfig()``)
+   trains 20 epochs on ``make_item_embs(700, 768)`` and writes the (700, 4)
+   codes (greedy, grouped Sinkhorn repair, 4th digit), its greedy codes held
+   against the CPU's, one step against an f64 CPU step with the card's codes;
+   TIGER-prefix (``TIGERPrefixConfig()``) trains 3 epochs at batch 256 on a
+   4096-user corpus tokenized with those codes and three prof-vector draws,
+   ``evaluate`` with the level constraint and 20 beams; one profiled step and
+   a B=16 step against an f64 CPU step;
+9. drive the parity SASRec: ``sasrec_pipeline.train`` (2 epochs) and
    ``evaluate`` on a 4096-user corpus, requests through ``sasrec_model_fn``
    (L=20: no flash launch);
-9. print one JSON line of kernel records, the card line, and last the
-   ``{"ok": true, "device": ...}`` line.
+10. print one JSON line of kernel records, the card line, and last the
+    ``{"ok": true, "device": ...}`` line.
 
-Kernel launch counts are set to 0 just before each of the paths 5-8 and read
+Kernel launch counts are set to 0 just before each of the paths 5-9 and read
 just after, and must equal what the path ran.
 
 TF32 is off for matmuls and cuDNN throughout, so f32 means f32.
@@ -101,6 +112,9 @@ BEAMS = 20
 TRAIN_USERS = 4096
 TRAIN_EPOCHS = 3
 STEP_B = 16
+RQ_EPOCHS = 20          # RQ-VAE: the reference trains 100 epochs
+GREEDY_MARGIN = 1e-4    # greedy codes, card vs CPU: rows whose top-2 margin exceeds this share
+                        # of the row's scale must be equal
 KERNEL_SOURCES = ("t5_attention_fwd", "t5_attention_bwd", "flash_attention_fwd",
                   "flash_attention_bwd")
 LC_L, LC_B, LC_STEPS = 2048, 32, 20      # long-context SASRec: train and batched serve
@@ -171,11 +185,13 @@ def device_ms(fn, iters: int = 20) -> float:
 
 def attention_case(name, h, b, lq, lk, d, *, causal=False, bias=True, pad=True,
                    causal_in_bias=False, fully_masked=False, dropout=False, bias_offset=0.0,
-                   seed=0):
+                   prefix=0, seed=0):
     """Inputs of one kernel case, made from a seed with numpy, on the card.
     ``causal_in_bias`` folds the causal −1e9 into the bias, as the decoder
     passes it; ``bias_offset`` is added to every bias value (the softmax
-    does not change; exp of an unshifted score would overflow)."""
+    does not change; exp of an unshifted score would overflow); ``prefix``
+    keys before the left-padded history are never masked, as TIGER-prefix's
+    3 prefix tokens."""
     r = np.random.default_rng(seed)
     dev = "cuda"
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)  # noqa: E731
@@ -187,6 +203,7 @@ def attention_case(name, h, b, lq, lk, d, *, causal=False, bias=True, pad=True,
     if pad:  # left padding, as the serving path pads histories
         valid = r.integers(1, lk + 1, size=b)
         mask = (np.arange(lk)[None, :] >= lk - valid[:, None]).astype(np.int32)
+        mask[:, :prefix] = 1
         if fully_masked:
             mask[0] = 0
         args["kv_mask"] = torch.from_numpy(mask).to(dev)
@@ -257,6 +274,11 @@ def attention_bound_ms(a) -> dict:
 
 
 FWD_TRAIN = ("enc_train", "dec_self_train", "cross_train")
+# TIGERPrefixConfig()'s new shapes for kernels #1 and #2 at batch 256 and 8 heads: the
+# encoder's self-attention over 3 prefix + 80 history tokens, and the decoder's
+# cross-attention from the 156-token train targets to them (name, Lq, Lk, bias, seed)
+PREFIX_CASES = (("prefix_enc", 83, 83, True, 31), ("prefix_cross", 156, 83, False, 32))
+PREFIX_SHAPES = tuple(c[0] for c in PREFIX_CASES)
 
 
 def ptxas_report(log: str, kernel: str) -> dict:
@@ -329,8 +351,11 @@ def phase_kernels():
     """Build every kernel; then kernel #1 against its plain version on the
     card (within ``TOL``) at the serving shapes, the three train shapes of
     TIGERConfig() at batch 256 with the f32 dropout mask and without it, and
-    edge cases; times, both bounds and SDPA beside each; bit-identical
-    outputs of two calls at the encoder and decoder train shapes; shared
+    edge cases; the encoder and cross-attention shapes of
+    TIGERPrefixConfig() (8 heads, 83 encoder tokens) at batch 256 with and
+    without the mask; times, both bounds and SDPA beside each; bit-identical
+    outputs of two calls at the encoder and decoder train shapes and the
+    TIGER-prefix shapes; shared
     memory, blocks per SM, ptxas registers and spills; at the train shapes,
     the distance from the f64 forward and where it comes from. Returns the
     results by case and the ptxas report of #1's instantiations."""
@@ -374,6 +399,10 @@ def phase_kernels():
         attention_case("dec_self_train_no_dropout", 4, BATCH, 156, 156, 16, pad=False,
                        causal_in_bias=True, seed=12),
         attention_case("cross_train_no_dropout", 4, BATCH, 156, 80, 16, bias=False, seed=13),
+        # TIGERPrefixConfig() at batch 256: 8 heads, 3 prefix + 80 history tokens
+        *[attention_case(name + tail, 8, BATCH, lq, lk, 16, bias=bias, dropout=not tail,
+                         prefix=3, seed=seed)
+          for name, lq, lk, bias, seed in PREFIX_CASES for tail in ("", "_no_dropout")],
         # ragged edges: A fragments reloaded; a ragged D; padding query rows
         # (156 -> 160) under a bias that e^s would overflow; padding keys
         # beside a fully masked row (they must score -inf, not -1e9)
@@ -397,7 +426,7 @@ def phase_kernels():
         del exact
         tol = TOL if a["qf"].shape[2] <= 64 else WIDE_TOL
         assert err <= tol, f"{name}: kernel vs plain max abs {err} > {tol}"
-        if name in ("enc_train", "dec_self_train"):
+        if name in ("enc_train", "dec_self_train", *PREFIX_SHAPES):
             again = ta.fused_t5_attention_flat(*args, dropout_rate=rate, **kw)
             assert torch.equal(out, again), f"{name}: two calls differ"
             print(f"[kernel] t5_attention_fwd {name}: out bit-identical between two calls")
@@ -445,12 +474,12 @@ def phase_kernels():
 
 
 def bwd_case(name, h, b, lq, lk, d, *, causal=False, bias=True, pad=True, causal_in_bias=False,
-             fully_masked=False, dropout=True, bias_offset=0.0, seed=0):
+             fully_masked=False, dropout=True, bias_offset=0.0, prefix=0, seed=0):
     """Inputs of one backward case (the forward's inputs of
     :func:`attention_case` plus an output gradient), on the card."""
     name, a = attention_case(name, h, b, lq, lk, d, causal=causal, bias=bias, pad=pad,
                              causal_in_bias=causal_in_bias, fully_masked=fully_masked,
-                             dropout=dropout, bias_offset=bias_offset, seed=seed)
+                             dropout=dropout, bias_offset=bias_offset, prefix=prefix, seed=seed)
     r = np.random.default_rng(seed + 1000)
     a["do"] = torch.from_numpy(r.normal(size=(h * b, lq, d)).astype(np.float32)).cuda()
     return name, a
@@ -686,8 +715,10 @@ def phase_dbias_reduce():
 
 def phase_bwd_kernels():
     """Kernel #2 against its plain version on the card, at the three train
-    shapes of TIGERConfig() at batch 256 and at edge cases; times and bounds;
-    bit-identical results from two calls at the encoder and decoder shapes;
+    shapes of TIGERConfig() at batch 256, the encoder and cross-attention
+    shapes of TIGERPrefixConfig() and edge cases; times and bounds;
+    bit-identical results from two calls at the encoder and decoder shapes
+    and the TIGER-prefix shapes;
     shared memory and blocks per SM; at the train shapes with dropout, the
     distance from the f64 backward and where it comes from."""
     from genrec_tpu_torch.ops import t5_attention as ta
@@ -703,6 +734,9 @@ def phase_bwd_kernels():
                  causal_in_bias=True, dropout=False, seed=12),
         bwd_case("cross_train_no_dropout", 4, BATCH, 156, 80, 16, bias=False, dropout=False,
                  seed=13),
+        *[bwd_case(name + tail, 8, BATCH, lq, lk, 16, bias=bias, dropout=not tail, prefix=3,
+                   seed=seed)
+          for name, lq, lk, bias, seed in PREFIX_CASES for tail in ("", "_no_dropout")],
         bwd_case("lq!=lk_causal", 2, 3, 12, 10, 8, causal=True, dropout=False, seed=14),
         bwd_case("dropout_mask", 2, 3, 12, 10, 8, seed=15),
         bwd_case("fully_masked_rows", 2, 3, 12, 10, 8, fully_masked=True, seed=16),
@@ -741,7 +775,7 @@ def phase_bwd_kernels():
             lib_note = why or "SDPA backward, bias gradient through the additive mask"
             if lib is not None:
                 fns.append(lib)
-        if name in ("enc_train", "dec_self_train"):
+        if name in ("enc_train", "dec_self_train", *PREFIX_SHAPES):
             again = ta.t5_attention_bwd(*args, **kw)
             same = [g is None or torch.equal(g, h) for g, h in zip(got, again)]
             assert all(same), f"{name}: two calls differ in (dq, dk, dv, dbias): {same}"
@@ -1594,8 +1628,25 @@ class _PlainAttention(torch.autograd.Function):
 
 def phase_train_step_parity(tr):
     """One train step of ``TIGERConfig()`` (ReLU feed-forward) at B=16 and
-    dropout 0: loss and every gradient on the card (both kernels) against the
-    same step on the CPU in f64 (the plain versions in f64).
+    dropout 0 on the card against an f64 CPU step: see :func:`t5_step_parity`."""
+    import dataclasses
+
+    from genrec_tpu_torch.configs import TIGERConfig
+    from genrec_tpu_torch.models.tiger import TIGER
+    from genrec_tpu_torch.pipelines.tiger_pipeline import loss_fn
+
+    base = TIGERConfig()
+    assert base.arch.feed_forward_proj == "relu", base.arch.feed_forward_proj
+    cfg = dataclasses.replace(base, arch=dataclasses.replace(base.arch, dropout_rate=0.0))
+    cpu = TIGER(cfg, generator=torch.Generator().manual_seed(1)).train()
+    t5_step_parity("train-step", cpu, tr.arrays, loss_fn)
+
+
+def t5_step_parity(tag, cpu, arrays, loss_fn):
+    """One train step of a T5 model (TIGER or TIGER-prefix, ReLU feed-forward,
+    dropout 0) on the first ``STEP_B`` rows of ``arrays``: loss and every
+    gradient on the card (both kernels) against the same step on the CPU in
+    f64 (the plain versions in f64). ``cpu`` holds the weights, on the CPU.
 
     The witness is f64 because ReLU's kink makes an f32 gradient
     discontinuous: two f32 runs that round one pre-activation near 0 to
@@ -1608,25 +1659,18 @@ def phase_train_step_parity(tr):
     |pre-activation| in f64; the f64 step with its own ReLU and the f32 CPU
     step are run as well and their distances printed, not held to the bound."""
     import copy
-    import dataclasses
 
-    from genrec_tpu_torch.configs import TIGERConfig
     from genrec_tpu_torch.models.t5 import T5FeedForward
-    from genrec_tpu_torch.models.tiger import TIGER
     from genrec_tpu_torch.ops import t5_attention as ta
-    from genrec_tpu_torch.pipelines.tiger_pipeline import loss_fn
 
-    base = TIGERConfig()
-    assert base.arch.feed_forward_proj == "relu", base.arch.feed_forward_proj
-    cfg = dataclasses.replace(base, arch=dataclasses.replace(base.arch, dropout_rate=0.0))
-    cpu = TIGER(cfg, generator=torch.Generator().manual_seed(1)).train()
     rows = np.arange(STEP_B)
     out, pre = {}, {}  # pre: run -> feed-forward name -> wi(x), f64 on the CPU
     for name, dev, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
                              ("cpu_f64_own_relu", "cpu", torch.float64),
                              ("cpu_f64", "cpu", torch.float64)):
         model = copy.deepcopy(cpu).to(dev, dtype)
-        batch = {k: torch.from_numpy(v[rows]).to(dev) for k, v in tr.arrays.items()}
+        batch = {k: torch.from_numpy(v[rows]).to(dev, dtype if v.dtype.kind == "f" else None)
+                 for k, v in arrays.items()}  # float inputs (prof vectors) in the step's type
         batch["valid"] = torch.ones(STEP_B, dtype=torch.bool, device=dev)
         ffs = {m: n for n, m in model.named_modules() if isinstance(m, T5FeedForward)}
         seen, wi = pre.setdefault(name, {}), {m.wi: n for m, n in ffs.items()}
@@ -1655,12 +1699,12 @@ def phase_train_step_parity(tr):
     near = [h[f].abs().max().item() for f, h in zip(flips, pre["cpu_f64_own_relu"].values())
             if f.any()]
     n_pre = sum(f.numel() for f in flips)
-    print(f"[train-step] ReLU decisions of the card's step against the f64 step's own: "
+    print(f"[{tag}] ReLU decisions of the card's step against the f64 step's own: "
           f"{sum(int(f.sum()) for f in flips)} of {n_pre} differ, the largest at "
           f"|pre-activation| {max(near, default=0.0):.3e} (f64)")
     loss_ref, ref = out["cpu_f64"]
     loss_err = abs(out["card"][0] - loss_ref)
-    assert loss_err <= TOL, f"train step loss card vs f64 CPU {loss_err} > {TOL}"
+    assert loss_err <= TOL, f"{tag} loss card vs f64 CPU {loss_err} > {TOL}"
     worst = {}
     for name, witness in (("card", "cpu_f64"), ("card_own", "cpu_f64_own_relu"),
                           ("cpu", "cpu_f64_own_relu")):
@@ -1671,11 +1715,15 @@ def phase_train_step_parity(tr):
             if name == "card":
                 assert err <= BWD_REL * scale + TOL, (
                     f"{k}: grad card vs f64 CPU {err} (max {scale})")
-            worst[name] = max(worst[name], (err / (scale + 1e-30), k))
-    print(f"[train-step] B={STEP_B} Lt=156 dropout 0 ReLU: loss card {out['card'][0]:.7f}, "
+            # relative to max(max|f64|, TOL): a gradient that is 0 in exact arithmetic
+            # (the adapters' key bias shifts every score of a query alike) holds f32 noise
+            worst[name] = max(worst[name], (err / max(scale, TOL), k))
+    print(f"[{tag}] B={STEP_B} Lt={arrays['labels'].shape[1]} dropout 0 ReLU: loss card "
+          f"{out['card'][0]:.7f}, "
           f"CPU f32 {out['cpu'][0]:.7f}, CPU f64 {loss_ref:.7f} (card |diff| {loss_err:.2e}); "
           f"{len(ref)} gradients against the f64 step with the card's ReLU decisions, worst "
-          f"max_err/max|f64|: card {worst['card'][0]:.2e} ({worst['card'][1]}); printed, not "
+          f"max_err/max(max|f64|, TOL): card {worst['card'][0]:.2e} ({worst['card'][1]}); "
+          f"printed, not "
           f"held, against the f64 step with its own ReLU: card {worst['card_own'][0]:.2e} "
           f"({worst['card_own'][1]}), CPU f32 {worst['cpu'][0]:.2e} ({worst['cpu'][1]})")
 
@@ -1755,6 +1803,362 @@ def phase_train(tmp, tr, te, codes):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return dict(fwd=fwd, bwd=bwd, reduce=reduce, examples_s=res.steady_examples_per_sec,
                 ms_step=ms_step, busy=busy)
+
+
+def _greedy_margins(model, embs):
+    """For each row, the smallest gap between its two nearest codes over the
+    levels of the greedy assignment, relative to the row's largest distance
+    at that level (the model's own device and type)."""
+    from genrec_tpu_torch.models.rqvae import _sq_distances
+
+    with torch.no_grad():
+        residual = model.encode(torch.from_numpy(embs))
+        rel = torch.full((len(embs),), float("inf"), dtype=torch.float64)
+        for level in range(len(model.cfg.num_emb_list)):
+            cb = model.codebook(level)
+            d = _sq_distances(residual, cb).double()
+            two = d.topk(2, dim=1, largest=False).values
+            rel = torch.minimum(rel, (two[:, 1] - two[:, 0]) / d.abs().amax(1).clamp(min=1e-30))
+            residual = residual - cb[d.argmin(1)]
+    return rel.numpy()
+
+
+def phase_rqvae(tmp):
+    """The RQ-VAE path at ``RQVAEConfig()`` widths (in 768, layers (256, 128),
+    e_dim 32, 3 codebooks of 8, k-means 50, Sinkhorn 50, 30 repair rounds) on
+    ``make_item_embs(700, 768)`` rows 1..700 at batch 64: ``train`` for up to
+    ``RQ_EPOCHS`` epochs (the reconstruction loss must fall), ``infer``
+    (greedy codes, grouped Sinkhorn repair, the 4th digit, codes.npy). The
+    card's greedy codes are held against the CPU's; one train step against
+    an f64 CPU step. Returns the (700, 4) codes."""
+    import dataclasses
+    import logging
+
+    from genrec_tpu_torch.configs import RQVAEConfig
+    from genrec_tpu_torch.data.synthetic import make_item_embs
+    from genrec_tpu_torch.models.rqvae import RQVAE, collision_rate
+    from genrec_tpu_torch.ops import t5_attention as ta
+    from genrec_tpu_torch.pipelines import rqvae_pipeline
+    from genrec_tpu_torch.train.trainer import Trainer
+
+    # JAX's rule, on which farthest-point init and code assignment depend: the
+    # first index on a tie, here on the card (a long row reduces across blocks)
+    ties = torch.tensor([[3.0, 1.0, 1.0, 5.0, 5.0], [2.0] * 5], device="cuda")
+    assert torch.argmin(ties, 1).tolist() == [1, 0] and torch.argmax(ties, 1).tolist() == [3, 0]
+    flat = torch.zeros(1 << 20, device="cuda")
+    flat[[5000, 700_000]] = 1.0
+    assert int(torch.argmax(flat)) == 5000 and int(torch.argmin(1.0 - flat)) == 5000
+    assert int(torch.argmin(flat)) == 0
+    print("[rqvae] torch.argmin / argmax on the card take the first index on ties")
+
+    base = RQVAEConfig()
+    assert (base.in_dim, base.layers, base.e_dim, base.num_emb_list, base.kmeans_iters,
+            base.sk_iters, base.collision_repair_iters, base.trainer.batch_size) == (
+        768, (256, 128), 32, (8, 8, 8), 50, 50, 30, 64), base
+    cfg = dataclasses.replace(
+        base, semantic_id_file=os.path.join(tmp, "rqvae", "course_rqvae_codes.npy"),
+        trainer=dataclasses.replace(base.trainer, epochs=RQ_EPOCHS,
+                                    ckpt_dir=os.path.join(tmp, "rqvae_ckpt")))
+    embs = make_item_embs(N_ITEMS, cfg.in_dim)[1:]  # row 0 is the padding row
+    rounds = []
+
+    class _Rounds(logging.Handler):
+        def emit(self, record):
+            if record.getMessage().startswith("Collision-repair iter"):
+                rounds.append(record.getMessage())
+
+    handler = _Rounds()
+    logging.getLogger("rqvae").addHandler(handler)
+    # ---- the main path: counts at 0 just before, read just after ----
+    ta.launches = ta.bwd_launches = ta.dbias_reduce_launches = 0
+    try:
+        t0 = time.perf_counter()
+        art = rqvae_pipeline.train(cfg, embs, device="cuda")
+        t1 = time.perf_counter()
+        codes = rqvae_pipeline.infer(cfg, art, embs, device="cuda")
+        t2 = time.perf_counter()
+    finally:
+        logging.getLogger("rqvae").removeHandler(handler)
+    counts = (ta.launches, ta.bwd_launches, ta.dbias_reduce_launches)
+    # ---- end of the main path ----
+    assert counts == (0, 0, 0), counts  # plain tensor code: no kernel of the port runs here
+    res = art.result
+    losses = res.train_losses
+    assert all(np.isfinite(losses)), losses
+    # the loss the training lowers: reconstruction, over all 700 items in eval mode,
+    # before training (k-means init) and after its last epoch. The total adds
+    # 0.1 x the quantization loss, which grows with the latent's scale on this data (the
+    # port's per-epoch losses equal the reference's in tests/test_torch_rqvae_pipeline.py),
+    # so it can rise and stop early
+    recon = {}
+    for name, state in (("init", rqvae_pipeline.build_model(cfg, embs, "cuda").state_dict()),
+                        ("last", res.final_params), ("best_collision", art.params)):
+        m = RQVAE(cfg)
+        m.load_state_dict(state)
+        m.to("cuda").eval()
+        with torch.no_grad():
+            x = torch.from_numpy(embs).cuda()
+            out, rq_loss, _ = m(x, use_sk=False)
+            recon[name] = float(m.compute_loss(out, rq_loss, x)[1])
+    print(f"[rqvae] total loss by epoch (train): {[round(x, 5) for x in losses]}, "
+          f"{res.epochs_run} epochs run (early stop after {cfg.trainer.early_stop_patience} "
+          f"without a lower total); reconstruction MSE over the {len(embs)} items: "
+          + ", ".join(f"{k} {v:.5f}" for k, v in recon.items()))
+    assert recon["last"] < 0.5 * recon["init"], recon  # a real fall, not a drift
+    assert codes.shape == (N_ITEMS, 4), codes.shape
+    assert len(np.unique(codes, axis=0)) == N_ITEMS, "codes collide after the 4th digit"
+    mapping = cfg.semantic_id_file.replace(".npy", "_mapping.json")
+    np.testing.assert_array_equal(np.load(cfg.semantic_id_file), codes)
+    with open(mapping) as f:
+        assert len(json.load(f)) == N_ITEMS
+    rate = collision_rate(codes[:, :3])
+    steps, ph = res.steps_run, res.phase_seconds
+    ms_step = (ph["train"] - ph["first_epoch"]) / (steps - steps // res.epochs_run) * 1e3
+    print(f"[rqvae] train {res.epochs_run} epochs ({steps} steps at B={cfg.trainer.batch_size}) in "
+          f"{t1 - t0:.2f} s with k-means and the collision reads; {ms_step:.2f} ms/step over "
+          f"epochs 2-{res.epochs_run} (host clock); best collision rate during training "
+          f"{art.final_collision_rate:.4f}; "
+          f"infer {t2 - t1:.2f} s: {len(rounds)} repair rounds, collision rate before the 4th "
+          f"digit {rate:.4f}, 4th digit up to {int(codes[:, 3].max())}; codes {codes.shape} "
+          f"unique, codes.npy and its mapping written")
+
+    # the card's greedy codes against the CPU's from the same parameters
+    card_model = RQVAE(cfg)
+    card_model.load_state_dict(art.params)
+    card = rqvae_pipeline._batched_indices(card_model.to("cuda").eval(), embs)
+    cpu_model = RQVAE(cfg)
+    cpu_model.load_state_dict(art.params)
+    cpu = rqvae_pipeline._batched_indices(cpu_model.eval(), embs)
+    clear = _greedy_margins(cpu_model, embs) > GREEDY_MARGIN
+    differ = (card != cpu).any(axis=1)
+    assert not (differ & clear).any(), (
+        f"greedy codes differ card vs CPU on {int((differ & clear).sum())} rows whose top-2 "
+        f"margin exceeds {GREEDY_MARGIN} of the row's scale")
+    print(f"[rqvae] greedy codes card vs CPU: {int(differ.sum())} of {N_ITEMS} rows differ; "
+          f"{int((~clear).sum())} rows have a top-2 distance margin within {GREEDY_MARGIN} of "
+          f"their scale at some level; every other row is equal")
+
+    # one step, profiled, on a fresh trainer (outside the counted main path)
+    trainer = Trainer(cfg.trainer, model=rqvae_pipeline.build_model(cfg, embs, "cuda"),
+                      loss_fn=rqvae_pipeline.loss_fn, train_data={"x": embs}, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = trainer.gather(trainer.train_data,
+                           torch.arange(cfg.trainer.batch_size, device="cuda"))
+    prof = profile_window(f"one RQ-VAE train step (B={cfg.trainer.batch_size}, Sinkhorn "
+                          f"{len(cfg.num_emb_list)} x {cfg.sk_iters} iterations)",
+                          lambda: trainer.train_step(batch, gen), top_n=8)
+    busy = None
+    if prof is not None:
+        busy = prof[0] / 1e3 / ms_step
+        print(f"[rqvae] device busy {prof[0] / 1e3:.3f} ms per step against {ms_step:.2f} ms per "
+              f"step on the host clock without the profiler: {100 * busy:.1f}% busy")
+    rqvae_step_parity(cfg, art.params, embs)
+    return codes, dict(ms_step=ms_step, infer_s=t2 - t1, rounds=len(rounds), rate=rate,
+                       losses=losses, recon=recon, busy=busy)
+
+
+def rqvae_step_parity(cfg, params, embs):
+    """One RQ-VAE train step at ``RQVAEConfig()`` widths and dropout 0 on 64
+    rows, the last 4 padding (row 0, masked), as the trainer's last batch at
+    700 items: loss and every gradient on the card against the same step on
+    the CPU in f64 that takes the card's code assignments (Sinkhorn's argmax
+    at each level) and the card's ReLU decisions, within the TIGER step's
+    bound. The f64 step with its own assignments and ReLU is printed, not held."""
+    import copy
+    import dataclasses
+
+    from genrec_tpu_torch.models.layers import MLPStack
+    from genrec_tpu_torch.models.rqvae import RQVAE
+    from genrec_tpu_torch.pipelines.rqvae_pipeline import loss_fn
+
+    cpu = RQVAE(dataclasses.replace(cfg, dropout=0.0))
+    cpu.load_state_dict(params)
+    cpu.train()
+    b = cfg.trainer.batch_size
+    valid = np.arange(b) < b - 4
+    x = np.where(valid[:, None], embs[:b], embs[0])
+    out, pre, idx = {}, {}, {}
+    assign, stack_forward = RQVAE.assign, MLPStack.forward
+    for name, dev, dtype in (("card", "cuda", torch.float32),
+                             ("cpu_f64_own", "cpu", torch.float64),
+                             ("cpu_f64", "cpu", torch.float64)):
+        model = copy.deepcopy(cpu).to(dev, dtype)
+        batch = {"x": torch.from_numpy(x).to(dev, dtype),
+                 "valid": torch.from_numpy(valid).to(dev)}
+        hidden = {layer: f"{i}.{j}" for i, stack in enumerate((model.encoder, model.decoder))
+                  for j, layer in enumerate(stack.layers[:-1])}
+        seen, got = pre.setdefault(name, {}), idx.setdefault(name, {})
+
+        def keep(mod, args, h, seen=seen, hidden=hidden):
+            seen[hidden[mod]] = h.detach().double().cpu()
+
+        def recording(self, d, level, use_sk, got=got, forced=name == "cpu_f64"):
+            i = idx["card"][level].to(d.device) if forced else assign(self, d, level, use_sk)
+            got[level] = i.cpu()
+            return i
+
+        hooks = [layer.register_forward_hook(keep) for layer in hidden]
+        RQVAE.assign = recording
+        if name == "cpu_f64":  # the card's ReLU decisions; dropout is 0 here
+            masks = {n: (h > 0).double() for n, h in pre["card"].items()}
+
+            def card_relu(self, x, generator=None, *, deterministic=False, hidden=hidden):
+                for layer in self.layers:
+                    x = layer(x)
+                    if layer in hidden:
+                        x = x * masks[hidden[layer]]
+                return x
+
+            MLPStack.forward = card_relu
+        try:
+            loss, _ = loss_fn(model, batch, None)
+            loss.backward()
+        finally:
+            RQVAE.assign, MLPStack.forward = assign, stack_forward
+            for hook in hooks:
+                hook.remove()
+        out[name] = (float(loss.detach()),
+                     {k: p.grad.double().cpu() for k, p in model.named_parameters()})
+    codes_differ = sum(int((idx["card"][lv] != idx["cpu_f64_own"][lv]).sum())
+                       for lv in idx["card"])
+    flips = sum(int(((h > 0) != (pre["card"][n] > 0)).sum())
+                for n, h in pre["cpu_f64_own"].items())
+    loss_ref, ref = out["cpu_f64"]
+    loss_err = abs(out["card"][0] - loss_ref)
+    assert loss_err <= TOL, f"rqvae step loss card vs f64 CPU {loss_err} > {TOL}"
+    worst = {}
+    for name, witness in (("card", "cpu_f64"), ("card_own", "cpu_f64_own")):
+        worst[name] = (0.0, "")
+        for k, g_ref in out[witness][1].items():
+            g = out["card"][1][k]
+            err, scale = (g - g_ref).abs().max().item(), g_ref.abs().max().item()
+            if name == "card":
+                assert err <= BWD_REL * scale + TOL, f"{k}: grad card vs f64 CPU {err} (max {scale})"
+            worst[name] = max(worst[name], (err / max(scale, TOL), k))
+    print(f"[rqvae-step] B={b} (4 padding rows) dropout 0, Sinkhorn assignment: loss card "
+          f"{out['card'][0]:.7f}, CPU f64 {loss_ref:.7f} (|diff| {loss_err:.2e}); {len(ref)} "
+          f"gradients against the f64 step with the card's codes and ReLU decisions, worst "
+          f"max_err/max(max|f64|, TOL) {worst['card'][0]:.2e} ({worst['card'][1]}); the f64 "
+          f"step's own "
+          f"codes differ in {codes_differ} of {3 * b} assignments and {flips} ReLU decisions, "
+          f"worst against it {worst['card_own'][0]:.2e} ({worst['card_own'][1]}), printed, "
+          f"not held")
+
+
+def prefix_corpus(codes):
+    """The TIGER-prefix corpus: make_interactions(4096 users, 700 items, 4..41
+    items each, seed 0) tokenized with ``[rqvae]``'s codes (row 0, the padding
+    item, set to zeros), and three make_prof_embs(4096, 5, 768) draws (seeds
+    2, 3, 4) standing in for prof_lvl{1,2,3}."""
+    from genrec_tpu_torch.configs import TIGERPrefixConfig
+    from genrec_tpu_torch.data import datasets, tiger_tokens
+    from genrec_tpu_torch.data.synthetic import make_interactions, make_prof_embs
+    from genrec_tpu_torch.pipelines.tiger_prefix_pipeline import attach_prof
+
+    cfg = TIGERPrefixConfig()
+    corpus = make_interactions(num_users=TRAIN_USERS, num_items=N_ITEMS, min_len=4,
+                               max_len=41, seed=0)
+    table = np.concatenate([np.zeros((1, codes.shape[1]), codes.dtype), codes])
+    tr_split, te_split = tiger_tokens.build_tiger_splits(corpus.item_id_lists,
+                                                         corpus.user_ids, table)
+    profs = [make_prof_embs(TRAIN_USERS, cfg.num_prof_vectors, cfg.bert_dim, seed=s)
+             for s in (2, 3, 4)]
+    tr = attach_prof(datasets.build_tiger_arrays(tr_split, cfg.max_len, cfg.code_dim), profs)
+    te = attach_prof(datasets.build_tiger_arrays(te_split, cfg.max_len, cfg.code_dim,
+                                                 max_target_items=1), profs)
+    print(f"[tiger-prefix] {len(tr['input_ids'])} train rows (targets up to "
+          f"{tr['labels'].shape[1]} tokens), {len(te['input_ids'])} test rows, prof vectors "
+          f"{tr['prof_lvl1'].shape[1:]} x 3 levels")
+    return tr, te
+
+
+def phase_tiger_prefix(tmp, tr, te):
+    """The TIGER-prefix path at ``TIGERPrefixConfig()`` widths (d_model 128,
+    2 + 4 layers, 8 heads of 16, d_ff 256, bert_dim 768, 5 vectors a level,
+    80 history tokens, dropout 0.1) on ``[rqvae]``'s codes: ``train`` for
+    ``TRAIN_EPOCHS`` epochs at batch 256 on device-resident data, then
+    ``evaluate`` with the level constraint and 20 beams. Kernel launch counts
+    are set to 0 just before and read just after. Then one profiled train
+    step and one B=16 step against an f64 CPU step."""
+    import dataclasses
+
+    from genrec_tpu_torch.configs import TIGERPrefixConfig
+    from genrec_tpu_torch.data.datasets import num_batches
+    from genrec_tpu_torch.models.tiger_prefix import TIGERPrefix
+    from genrec_tpu_torch.ops import t5_attention as ta
+    from genrec_tpu_torch.pipelines import tiger_prefix_pipeline as tpp
+    from genrec_tpu_torch.train.trainer import Trainer
+
+    base = TIGERPrefixConfig()
+    a = base.arch
+    assert (a.d_model, a.num_layers, a.num_decoder_layers, a.num_heads, a.d_kv, a.d_ff,
+            a.dropout_rate, base.bert_dim, base.num_prof_vectors, base.max_len,
+            base.constrained_decoding) == (128, 2, 4, 8, 16, 256, 0.1, 768, 5, 20, "level"), base
+    cfg = dataclasses.replace(base, trainer=dataclasses.replace(
+        base.trainer, epochs=TRAIN_EPOCHS, batch_size=BATCH, eval_batch_size=BATCH,
+        ckpt_dir=os.path.join(tmp, "prefix_ckpt"), seed=0))
+    steps_per_epoch = num_batches(len(tr["input_ids"]), BATCH)
+    val_batches = num_batches(len(te["input_ids"]), BATCH)
+
+    # ---- the main path: counts at 0 just before, read just after ----
+    ta.launches = ta.bwd_launches = ta.dbias_reduce_launches = 0
+    art = tpp.train(cfg, tr, te, device="cuda")
+    metrics = tpp.evaluate(cfg, art, te, device="cuda")
+    torch.cuda.synchronize()
+    fwd, bwd, reduce = ta.launches, ta.bwd_launches, ta.dbias_reduce_launches
+    # ---- end of the main path ----
+
+    res = art.result
+    print(f"[tiger-prefix] losses by epoch (train): {[round(x, 5) for x in res.train_losses]}; "
+          f"val: {[round(x, 5) for x in res.val_losses]}")
+    assert all(np.isfinite(res.train_losses + res.val_losses)), res.train_losses
+    assert res.epochs_run == TRAIN_EPOCHS and res.train_losses[-1] < res.train_losses[0]
+    assert set(metrics) == {f"{m}@{k}" for m in ("Recall", "NDCG") for k in cfg.topk_list}
+    beams = max(max(cfg.topk_list), cfg.beam_size)
+    assert beams == BEAMS
+    print(f"[tiger-prefix] evaluate (level, {beams} beams): "
+          + ", ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+    steps = res.steps_run
+    assert steps == TRAIN_EPOCHS * steps_per_epoch, steps
+    # per train step: #1 in the 2 encoder self-, 4 decoder self- and 4 cross-attentions,
+    # #2 in each of their backwards, the dbias reduction in the 6 self-attentions' (their
+    # bias learns); validation's forwards 10 of #1 a batch; generate 2 (the encoder)
+    want_fwd = 10 * steps + 10 * TRAIN_EPOCHS * val_batches + 2 * val_batches
+    print(f"[launches] TIGER-prefix path: t5_attention_fwd {fwd} (want 10 x {steps} steps + 10 "
+          f"x {TRAIN_EPOCHS * val_batches} val batches + 2 x {val_batches} generate batches = "
+          f"{want_fwd}), t5_attention_bwd {bwd} (want 10 x {steps} = {10 * steps}), "
+          f"t5_attention_dbias_reduce {reduce} (want 6 x {steps} = {6 * steps})")
+    assert fwd == want_fwd and bwd == 10 * steps and reduce == 6 * steps, (fwd, bwd, reduce)
+
+    ph = res.phase_seconds
+    steady_steps = (res.epochs_run - 1) * steps_per_epoch
+    ms_step = (ph["train"] - ph["first_epoch"]) / steady_steps * 1e3
+    print(f"[tiger-prefix] B={BATCH}, {steps_per_epoch} steps/epoch: "
+          f"{res.steady_examples_per_sec:.1f} train examples/s and {ms_step:.2f} ms/step over "
+          f"epochs 2-{res.epochs_run} (host clock); first "
+          f"epoch {ph['first_epoch']:.2f} s, val {ph['val']:.2f} s, ckpt {ph['ckpt']:.2f} s")
+
+    # one step, profiled, on a fresh trainer (outside the counted main path)
+    trainer = Trainer(cfg.trainer, model=tpp.build_model(cfg), loss_fn=tpp.loss_fn,
+                      train_data=tr, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = trainer.gather(trainer.train_data, torch.arange(BATCH, device="cuda"))
+    prof = profile_window(f"one TIGER-prefix train step (B={BATCH}, Lenc=83, "
+                          f"Lt={tr['labels'].shape[1]}, dropout 0.1)",
+                          lambda: trainer.train_step(batch, gen), top_n=12)
+    busy = None
+    if prof is not None:
+        busy = prof[0] / 1e3 / ms_step
+        print(f"[tiger-prefix] device busy {prof[0] / 1e3:.3f} ms per step against {ms_step:.2f} "
+              f"ms per step on the host clock without the profiler: {100 * busy:.1f}% busy")
+
+    cfg0 = dataclasses.replace(base, arch=dataclasses.replace(base.arch, dropout_rate=0.0))
+    t5_step_parity("tiger-prefix-step",
+                   TIGERPrefix(cfg0, generator=torch.Generator().manual_seed(1)).train(),
+                   tr, tpp.loss_fn)
+    return dict(fwd=fwd, bwd=bwd, reduce=reduce, examples_s=res.steady_examples_per_sec,
+                ms_step=ms_step, busy=busy, device_ms=None if prof is None else prof[0] / 1e3,
+                metrics=metrics)
 
 
 def profile_window(label, work, reps: int = 3, top_n: int = 6):
@@ -1863,11 +2267,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         launches, req_s, seqs_s = phase_serving(tmp)
         train = phase_train(tmp, tr, te, codes)
+        rq_codes, rqvae = phase_rqvae(tmp)
+        prefix = phase_tiger_prefix(tmp, *prefix_corpus(rq_codes))
         lc_serve = phase_sasrec_large_serve()
         phase_sasrec_large_train_parity()
         phase_sasrec(tmp)
         lc_train = phase_sasrec_large_train()
     assert launches > 0 and train["fwd"] > 0 and train["bwd"] > 0
+    assert prefix["fwd"] > 0 and prefix["bwd"] > 0 and prefix["reduce"] > 0
     assert lc_serve["fwd"] > 0 and all(n > 0 for n in lc_train["counts"][0])
     assert all(n > 0 for n in lc_train["counts"][1])
     bench = results["bench"]
@@ -1876,8 +2283,9 @@ def main() -> int:
         "name": "t5_attention_fwd", "route": "cuda",
         "source": "genrec_tpu_torch/csrc/t5_attention_fwd.cu",
         "replaces": "genrec_tpu/ops/t5_attention.py:115",
-        "launches": launches + train["fwd"],
-        "launches_by_path": {"serve": launches, "train": train["fwd"]},
+        "launches": launches + train["fwd"] + prefix["fwd"],
+        "launches_by_path": {"serve": launches, "train": train["fwd"],
+                             "tiger_prefix": prefix["fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in results.values()),
         "ms": bench["ms"], "plain_ms": bench["plain_ms"], "bound_ms": bench["bound_ms"],
         "bound_by": bench["bound_by"], "bound_ms_f32": bench["bound_ms_f32"],
@@ -1898,13 +2306,21 @@ def main() -> int:
         **{f"{k}_no_dropout_{m}": results[f"{k}_no_dropout"][m] for k in FWD_TRAIN
            for m in ("ms", "device_ms", "bound_ms", "bound_ms_f32", "library_ms",
                      "library_device_ms")},
+        **{f"{k}_{m}": results[k][m] for k in PREFIX_SHAPES
+           for m in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_ms_f32", "max_abs_err")},
+        **{f"{k}_no_dropout_{m}": results[f"{k}_no_dropout"][m] for k in PREFIX_SHAPES
+           for m in ("ms", "device_ms", "bound_ms", "library_ms", "library_device_ms")},
+        "prefix_shapes": "prefix_enc: q/k/v (8*256, 83, 16), bias (8, 83, 83), mask (256, 83) "
+                         "with 3 prefix ones; prefix_cross: q (8*256, 156, 16), k/v (8*256, 83, "
+                         "16), mask (256, 83); f32 dropout mask unless _no_dropout",
     }
     dec, dec0 = bwd["dec_self_train"], bwd["dec_self_train_no_dropout"]
     bwd_record = {
         "name": "t5_attention_bwd", "route": "cuda",
         "source": "genrec_tpu_torch/csrc/t5_attention_bwd.cu",
         "replaces": "genrec_tpu/ops/t5_attention.py:129",
-        "launches": train["bwd"], "launches_by_path": {"serve": 0, "train": train["bwd"]},
+        "launches": train["bwd"] + prefix["bwd"],
+        "launches_by_path": {"serve": 0, "train": train["bwd"], "tiger_prefix": prefix["bwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in bwd.values()),
         "max_rel_err": max(r["max_rel_err"] for r in bwd.values()),
         "ms": dec["ms"], "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
@@ -1926,12 +2342,20 @@ def main() -> int:
            for m in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_ms_f32", "blocks_per_sm")},
         **{f"{k}_no_dropout_{m}": bwd[f"{k}_no_dropout"][m] for k in ("enc_train", "cross_train")
            for m in ("ms", "device_ms", "library_ms", "library_device_ms")},
+        **{f"{k}_{m}": bwd[k][m] for k in PREFIX_SHAPES
+           for m in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_ms_f32", "max_rel_err")},
+        **{f"{k}_no_dropout_{m}": bwd[f"{k}_no_dropout"][m] for k in PREFIX_SHAPES
+           for m in ("ms", "device_ms", "bound_ms", "library_ms", "library_device_ms")},
+        "dbias_reduce_launches_by_path": {"train": train["reduce"],
+                                          "tiger_prefix": prefix["reduce"]},
     }
     reduce_record = {
         "name": "t5_attention_dbias_reduce", "route": "cuda",
         "source": "genrec_tpu_torch/csrc/t5_attention_bwd.cu",
         "replaces": "genrec_tpu/ops/t5_attention.py:157 (the dbias sum of _bwd_kernel)",
-        "launches": train["reduce"], "launches_by_path": {"serve": 0, "train": train["reduce"]},
+        "launches": train["reduce"] + prefix["reduce"],
+        "launches_by_path": {"serve": 0, "train": train["reduce"],
+                             "tiger_prefix": prefix["reduce"]},
         "max_abs_err": reduce["max_abs_err"], "ms": reduce["ms"], "plain_ms": reduce["plain_ms"],
         "bound_ms": reduce["bound_ms"], "bound_by": reduce["bound_by"],
         "library_ms": reduce["library_ms"], "device_ms": reduce["device_ms"],
@@ -1943,7 +2367,13 @@ def main() -> int:
           f"train step device busy share {train['busy']}; long-context SASRec: "
           f"{lc_serve['req_s']:.2f} requests/s, {lc_serve['batch_s']:.1f} histories/s at "
           f"B={LC_B}, {lc_train['ms_step']:.2f} ms/train step at B={LC_B}, "
-          f"{lc_train['examples_s']:.1f} examples/s, busy share {lc_train['busy']}; "
+          f"{lc_train['examples_s']:.1f} examples/s, busy share {lc_train['busy']}; RQ-VAE: "
+          f"{rqvae['ms_step']:.2f} ms/train step at B=64, busy share {rqvae['busy']}, infer "
+          f"{rqvae['infer_s']:.2f} s, "
+          f"{rqvae['rounds']} repair rounds, collision rate before the 4th digit "
+          f"{rqvae['rate']:.4f}; TIGER-prefix: {prefix['examples_s']:.1f} train examples/s, "
+          f"{prefix['ms_step']:.2f} ms/train step, device {prefix['device_ms']} ms/step, busy "
+          f"share {prefix['busy']}, Recall@10 {prefix['metrics']['Recall@10']:.4f}; "
           f"{time.perf_counter() - t_start:.1f} s")
     kernels = [fwd_record, bwd_record, reduce_record] + flash_records(flash, flash_build,
                                                                       lc_serve, lc_train)

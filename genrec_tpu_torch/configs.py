@@ -1,12 +1,13 @@
 """Configuration dataclasses of the port.
 
 A copy of ``genrec_tpu.configs``' ``MeshConfig``, ``TrainerConfig``,
-``T5ArchConfig``, ``TIGERConfig``, ``SASRecConfig``,
-``ShardedEmbeddingConfig``, ``SASRecLargeConfig`` and
+``RQVAEConfig``, ``T5ArchConfig``, ``TIGERConfig``, ``TIGERPrefixConfig``,
+``SASRecConfig``, ``ShardedEmbeddingConfig``, ``SASRecLargeConfig`` and
 ``long_context_sasrec_config``: the same fields with the same defaults, so
 that a configuration compares field for field with the reference's.
-Defaults reproduce the reference configurations (`RQVAE-T5/main.py:4-35`,
-`RQVAE-T5/model.py:9-23`, `SASRec/main.py:6-42`).
+Defaults reproduce the reference configurations (`RQ-VAE/main.py:6-36`,
+`RQVAE-T5/main.py:4-35`, `RQVAE-T5/model.py:9-23`,
+`RQVAE-T5-prefix/main.py:4-43`, `SASRec/main.py:6-42`).
 
 ``T5ArchConfig.fused_attention`` stays as a field for that comparison, but
 the port does not read it: the port always runs attention without a KV
@@ -71,6 +72,36 @@ class TrainerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RQVAEConfig:
+    """RQ-VAE residual-quantization tokenizer. Mirrors `RQ-VAE/main.py:6-36`."""
+
+    data_path: str = "data/course_item_embs.h5"
+    ckpt_dir: str = "./ckpt/course"
+    semantic_id_file: str = "data/course/course_rqvae_codes.npy"
+    in_dim: int = 768
+    num_emb_list: Tuple[int, ...] = (8, 8, 8)
+    e_dim: int = 32
+    layers: Tuple[int, ...] = (256, 128)
+    dropout: float = 0.1
+    loss_type: str = "mse"  # mse | l1
+    quant_loss_weight: float = 0.1
+    beta: float = 0.25
+    kmeans_init: bool = True
+    kmeans_iters: int = 50
+    sk_epsilons: Tuple[float, ...] = (0.01, 0.01, 0.01)
+    sk_iters: int = 50
+    collision_repair_iters: int = 30  # RQ-VAE/infer.py:108-130
+    trainer: TrainerConfig = dataclasses.field(
+        default_factory=lambda: TrainerConfig(
+            batch_size=64, epochs=100, lr=1e-3, optimizer="adamw",
+            weight_decay=1e-4, lr_scheduler="linear", warmup_epochs=5,
+            grad_clip_norm=1.0, seed=2024,
+        )
+    )
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+
+
+@dataclasses.dataclass(frozen=True)
 class T5ArchConfig:
     """Scratch T5 architecture (HF `T5Config` semantics): relative position
     biases, RMS layer norm, relu feed-forward, tied embeddings with
@@ -122,6 +153,38 @@ class TIGERConfig:
     )
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     target_len_composite: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class TIGERPrefixConfig:
+    """Prefix-conditioned TIGER. Mirrors `RQVAE-T5-prefix/main.py:4-43`."""
+
+    task_id: str = "task1"
+    code_path: str = "data/course/course_rqvae_codes.npy"
+    train_dataset_path: str = "data/tiger/train_dataset.h5"
+    test_dataset_path: str = "data/tiger/test_dataset.h5"
+    prof_lvl_paths: Tuple[str, str, str] = (
+        "data/prof_lvl1.h5", "data/prof_lvl2.h5", "data/prof_lvl3.h5",
+    )
+    arch: T5ArchConfig = dataclasses.field(
+        default_factory=lambda: T5ArchConfig(
+            d_model=128, num_decoder_layers=4, num_heads=8, d_kv=16, d_ff=256,
+        )
+    )
+    bert_dim: int = 768
+    num_prof_vectors: int = 5  # top-5 majors per level (prof_lvl*.h5 contract)
+    codebook_size: int = 8
+    code_dim: int = 4
+    max_len: int = 20
+    max_gen_len: int = 5
+    beam_size: int = 5
+    topk_list: Tuple[int, ...] = (2, 5, 10, 20)
+    constrained_decoding: str = "level"
+    trainer: TrainerConfig = dataclasses.field(
+        default_factory=lambda: TrainerConfig(batch_size=256, eval_batch_size=256,
+                                              epochs=500, lr=1e-3)
+    )
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,6 +4,8 @@ Each converter takes the variables of a Flax model (the dict its ``init``
 returns, ``{"params": ...}``) as a nested dict of numpy arrays and returns
 the state_dict of the port's module at the same config:
 ``tiger_params_from_flax`` (``models.tiger.TIGER``),
+``tiger_prefix_params_from_flax`` (``models.tiger_prefix.TIGERPrefix``),
+``rqvae_params_from_flax`` (``models.rqvae.RQVAE``),
 ``sasrec_params_from_flax`` (``models.sasrec.SASRec``) and
 ``sasrec_large_params_from_flax`` (``models.sasrec_large.SASRecLarge``).
 The mapping:
@@ -15,7 +17,13 @@ The mapping:
 - Flax ``block_<i>`` (T5) and ``blocks_<i>`` (SASRec) → torch ``blocks.<i>``;
 - SASRecBlock's auto-named ``Dense_0..5`` and ``LayerNorm_0/1`` → the
   port's ``q``, ``k``, ``v``, ``out``, ``ff_in``, ``ff_out``, ``attn_norm``
-  and ``ff_norm``.
+  and ``ff_norm``;
+- RQ-VAE's ``MLPStack`` ``Dense_<i>`` → ``layers.<i>``, and ``codebook_<i>``
+  → ``codebooks.<i>`` as stored: the centers plus 1/n_e, the shift that
+  ``RQVAE.codebook`` takes off again;
+- TIGER-prefix's ``adapter_lvl{1,2,3}`` keep their names and submodules
+  (``bert_proj``, ``q_proj``, ``k_proj``, ``v_proj``, ``out_proj``,
+  ``ffn_in``, ``ffn_out``, ``norm1``, ``norm2``).
 
 It is strict: every Flax leaf is consumed, every torch entry is filled,
 and every shape is checked against the port's module; anything else raises.
@@ -28,7 +36,8 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from genrec_tpu_torch.configs import SASRecConfig, SASRecLargeConfig, TIGERConfig
+from genrec_tpu_torch.configs import (RQVAEConfig, SASRecConfig, SASRecLargeConfig,
+                                      TIGERConfig, TIGERPrefixConfig)
 
 # SASRecBlock's Flax submodules are auto-named in call order (sasrec.py:48-68)
 _SASREC_BLOCK_NAMES = {"Dense_0": "q", "Dense_1": "k", "Dense_2": "v", "Dense_3": "out",
@@ -102,6 +111,31 @@ def tiger_params_from_flax(tree: Mapping, cfg: Optional[TIGERConfig] = None
     with torch.device("meta"):
         module = TIGER(cfg or TIGERConfig())
     return _state_from_flax(tree, module)
+
+
+def tiger_prefix_params_from_flax(tree: Mapping, cfg: Optional[TIGERPrefixConfig] = None
+                                  ) -> Dict[str, torch.Tensor]:
+    """Flax TIGERPrefix variables → the port's TIGERPrefix state_dict: the
+    T5 as for TIGER, and the three adapters under their Flax names."""
+    from genrec_tpu_torch.models.tiger_prefix import TIGERPrefix
+
+    with torch.device("meta"):
+        module = TIGERPrefix(cfg or TIGERPrefixConfig())
+    return _state_from_flax(tree, module)
+
+
+def rqvae_params_from_flax(tree: Mapping, cfg: Optional[RQVAEConfig] = None
+                           ) -> Dict[str, torch.Tensor]:
+    """Flax RQVAE variables → the port's RQVAE state_dict, the codebooks as
+    stored (centers + 1/n_e)."""
+    from genrec_tpu_torch.models.rqvae import RQVAE
+
+    cfg = cfg or RQVAEConfig()
+    rename = {f"Dense_{i}": f"layers.{i}" for i in range(len(cfg.layers) + 1)}
+    rename.update({f"codebook_{i}": f"codebooks.{i}" for i in range(len(cfg.num_emb_list))})
+    with torch.device("meta"):
+        module = RQVAE(cfg)
+    return _state_from_flax(tree, module, rename)
 
 
 def sasrec_params_from_flax(tree: Mapping, item_num: int,

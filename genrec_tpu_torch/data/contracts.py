@@ -1,5 +1,5 @@
 """File contracts of the port: copies of ``genrec_tpu/data/contracts.py``'s
-code file, interaction and TIGER-split parts.
+code file, item embedding, interaction, TIGER-split and prof_lvl parts.
 
 - ``course_rqvae_codes.npy`` holds an (N_items + 1, L + 1) int table: row i
   is dense item i (row 0 is padding), L RQ levels plus a collision-
@@ -8,6 +8,10 @@ code file, interaction and TIGER-split parts.
 - ``InteractionData`` is the in-memory form of ``user_item_interact.h5``
   (``user_id`` int32, ``user_profile`` vlen str, ``item_id_list`` vlen int32;
   read at `SASRec/data_vision.py:40-46`).
+- ``course_item_embs.h5``: ``item_embs`` (N_items + 1, D) f32, row 0 the
+  padding row, and a JSON ``meta`` string.
+- ``prof_lvl{1,2,3}.h5``: ``user_id`` (N,) int32 and ``user_major_embs``
+  (N, 5, 768) f32, the top-5 major vectors of each user at one level.
 - ``tiger/{train,test}_dataset.h5``: ``user_id`` int32, ``history`` /
   ``target`` vlen int32 of flattened offset tokens
   (`RQVAE-T5/data_vision.py:8-11`). h5py is imported only by the functions
@@ -22,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -42,6 +46,58 @@ def write_codes(path: str, codes: np.ndarray, write_mapping_json: bool = True) -
 
 def read_codes(path: str) -> np.ndarray:
     return np.load(path)
+
+
+def _ensure_parent(path: str) -> None:
+    parent = os.path.dirname(os.path.abspath(path))
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+
+
+def write_item_embs(path: str, item_embs: np.ndarray,
+                    meta: Optional[Dict] = None) -> None:
+    """Row 0 is the padding row (empty-text embedding in the reference)."""
+    import h5py
+
+    _ensure_parent(path)
+    with h5py.File(path, "w") as f:
+        f.create_dataset("item_embs", data=np.asarray(item_embs, dtype=np.float32),
+                         compression="gzip")
+        meta = dict(meta or {})
+        meta.setdefault("dim", int(item_embs.shape[1]))
+        f.create_dataset("meta", data=np.bytes_(json.dumps(meta, ensure_ascii=False)))
+
+
+def read_item_embs(path: str):
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        embs = f["item_embs"][:].astype(np.float32)
+        meta = {}
+        if "meta" in f:
+            raw = f["meta"][()]
+            if isinstance(raw, bytes):
+                meta = json.loads(raw.decode("utf-8"))
+    return embs, meta
+
+
+def write_prof_lvl(path: str, user_ids: np.ndarray, user_major_embs: np.ndarray) -> None:
+    """``prof_lvl{1,2,3}.h5``: (N,) ids + (N, 5, 768) top-5 major vectors."""
+    import h5py
+
+    _ensure_parent(path)
+    with h5py.File(path, "w") as f:
+        f.create_dataset("user_id", data=np.asarray(user_ids, dtype=np.int32))
+        f.create_dataset("user_major_embs",
+                         data=np.asarray(user_major_embs, dtype=np.float32),
+                         compression="gzip")
+
+
+def read_prof_lvl(path: str):
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return f["user_id"][:].astype(np.int32), f["user_major_embs"][:].astype(np.float32)
 
 
 @dataclasses.dataclass

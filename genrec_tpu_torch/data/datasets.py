@@ -1,7 +1,8 @@
 """Fixed-shape SASRec and TIGER arrays and batch iterators: copies of
 ``genrec_tpu/data/datasets.py``'s ``SASRecArrays``, ``build_sasrec_arrays``
 and ``build_tiger_arrays`` (their Python paths, not the native packer),
-``TigerArrays``, ``num_batches`` and ``iterate_batches``.
+``TigerArrays``, ``num_batches``, ``iterate_batches`` and
+``join_prof_embs``.
 
 SASRec train rows: input = seq[:-1], target = seq[1:], the last ``max_len``
 kept, left-padded with 0; test rows: leave-one-out (input = seq[:-1],
@@ -146,3 +147,19 @@ def build_tiger_arrays(split: TigerSplit, max_len: int, code_dim: int = 4,
     attention_mask = (input_ids != pad_token).astype(np.int32)
     return TigerArrays(input_ids, attention_mask, labels,
                        np.asarray(split.user_ids, dtype=np.int32))
+
+
+def join_prof_embs(user_ids: np.ndarray, prof_user_ids: np.ndarray,
+                   prof_embs: np.ndarray) -> np.ndarray:
+    """Per-sample join of prof_lvl embeddings by user id.
+
+    Mirrors `RQVAE-T5-prefix/data_vision.py:104-119` (dict lookup by user_id;
+    zeros for missing users).
+    """
+    lut = np.zeros(int(max(prof_user_ids.max(), user_ids.max())) + 1, dtype=np.int64) - 1
+    lut[prof_user_ids] = np.arange(len(prof_user_ids))
+    rows = lut[user_ids]
+    out = np.zeros((len(user_ids),) + prof_embs.shape[1:], dtype=prof_embs.dtype)
+    found = rows >= 0
+    out[found] = prof_embs[rows[found]]
+    return out

@@ -1,12 +1,15 @@
-"""Synthetic corpora and semantic-ID tables for the smoke run and the tests:
-copies of ``genrec_tpu/data/synthetic.py``'s ``make_interactions`` and
-``make_codes``, which give the same arrays from the same seed.
+"""Synthetic corpora, embeddings and semantic-ID tables for the smoke run and
+the tests: copies of ``genrec_tpu/data/synthetic.py``'s ``make_interactions``,
+``make_item_embs``, ``make_codes`` and ``make_prof_embs``, which give the
+same arrays from the same seed.
 
 Sequences follow a power-law item popularity with per-user Markov topic
 drift, which is enough structure for a retriever to beat random.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 
@@ -75,6 +78,22 @@ def make_interactions(
     return InteractionData(user_ids, profiles, seqs)
 
 
+def make_item_embs(num_items: int, dim: int = 768, num_topics: int = 16,
+                   seed: int = 0, noise: float = 0.3) -> np.ndarray:
+    """Synthetic item embedding table with cluster structure.
+
+    Row 0 is the zero padding row (contract of `T5/item_encode.py:99-101`).
+    Cluster structure makes RQ-VAE codebooks meaningful.
+    """
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(0, 1.0, size=(num_topics, dim)).astype(np.float32)
+    topics = rng.integers(0, num_topics, size=num_items)
+    embs = centers[topics] + noise * rng.normal(0, 1.0, size=(num_items, dim)).astype(np.float32)
+    table = np.zeros((num_items + 1, dim), dtype=np.float32)
+    table[1:] = embs
+    return table
+
+
 def make_codes(num_items: int, codebook_size: int = 8, num_levels: int = 3,
                seed: int = 0) -> np.ndarray:
     """Synthetic collision-free (num_items+1, num_levels+1) semantic-ID table.
@@ -92,3 +111,12 @@ def make_codes(num_items: int, codebook_size: int = 8, num_levels: int = 3,
         for i, j in enumerate(idx):
             full[j, -1] = i
     return full
+
+
+def make_prof_embs(num_users: int, num_vectors: int = 5, dim: int = 768,
+                   seed: int = 2) -> Tuple[np.ndarray, np.ndarray]:
+    """Synthetic prof_lvl*.h5 payload: (user_ids, (N, 5, 768) vectors)."""
+    rng = np.random.default_rng(seed)
+    user_ids = np.arange(1, num_users + 1, dtype=np.int32)
+    embs = rng.normal(0, 0.5, size=(num_users, num_vectors, dim)).astype(np.float32)
+    return user_ids, embs

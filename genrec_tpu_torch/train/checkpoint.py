@@ -6,6 +6,8 @@ file and renamed into place so that a reader never sees half a file:
 
 - ``<ckpt_dir>/best.pt``: a state_dict of the best parameters
   (:func:`save_best` / :func:`restore_best`; ``tiger_model_fn`` serves it);
+  another ``tag`` writes ``<tag>.pt`` beside it (the RQ-VAE pipeline keeps
+  its best-collision parameters in ``best_collision.pt``);
 - ``<ckpt_dir>/latest_<step>.pt``: the full train state (model, optimizer,
   scheduler, ``step``, ``epoch``, ``best_val``) with bounded retention: the
   newest ``keep`` are kept (:class:`CheckpointStore`).
@@ -20,7 +22,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-BEST = "best.pt"
+BEST = "best"
 _LATEST = re.compile(r"^latest_(\d+)\.pt$")
 
 
@@ -38,15 +40,15 @@ def _atomic_save(obj, path: str) -> str:
     return path
 
 
-def save_best(state_dict: Dict[str, torch.Tensor], ckpt_dir: str) -> str:
-    """Write ``state_dict`` as the best checkpoint of ``ckpt_dir``; return
-    its path. Every restore loads onto the CPU."""
-    return _atomic_save(state_dict, os.path.join(ckpt_dir, BEST))
+def save_best(state_dict: Dict[str, torch.Tensor], ckpt_dir: str, tag: str = BEST) -> str:
+    """Write ``state_dict`` as the checkpoint ``<tag>.pt`` of ``ckpt_dir``;
+    return its path. Every restore loads onto the CPU."""
+    return _atomic_save(state_dict, os.path.join(ckpt_dir, f"{tag}.pt"))
 
 
-def restore_best(ckpt_dir: str) -> Optional[Dict[str, torch.Tensor]]:
-    """The best state_dict of ``ckpt_dir`` on the CPU, or None if absent."""
-    path = os.path.join(ckpt_dir, BEST)
+def restore_best(ckpt_dir: str, tag: str = BEST) -> Optional[Dict[str, torch.Tensor]]:
+    """The state_dict ``<tag>.pt`` of ``ckpt_dir`` on the CPU, or None if absent."""
+    path = os.path.join(ckpt_dir, f"{tag}.pt")
     if not os.path.exists(path):
         return None
     return torch.load(path, map_location="cpu", weights_only=True)
@@ -89,8 +91,8 @@ class CheckpointStore:
             return None
         return torch.load(self._path(step), map_location="cpu", weights_only=True)
 
-    def save_best(self, state_dict: Dict[str, torch.Tensor]) -> str:
-        return save_best(state_dict, self.dir)
+    def save_best(self, state_dict: Dict[str, torch.Tensor], tag: str = BEST) -> str:
+        return save_best(state_dict, self.dir, tag)
 
-    def restore_best(self) -> Optional[Dict[str, torch.Tensor]]:
-        return restore_best(self.dir)
+    def restore_best(self, tag: str = BEST) -> Optional[Dict[str, torch.Tensor]]:
+        return restore_best(self.dir, tag)

@@ -14,8 +14,9 @@ single-device, device-resident path:
 - the loss sums stay on the device and are read once per epoch;
 - per-epoch validation loss, early stop on ``early_stop_patience``, the best
   parameters snapshot (``best.pt``), latest-state checkpoints every
-  ``ckpt_every_epochs`` with ``keep_checkpoints`` retention, resume, and the
-  abort on a non-finite loss.
+  ``ckpt_every_epochs`` with ``keep_checkpoints`` retention, resume, the
+  abort on a non-finite loss, and an ``epoch_end_callback(epoch, trainer)``
+  after each epoch's latest-state save.
 
 Still to port (ROADMAP): sharded and multi-process datasets, length
 buckets, composite widths, batch factories and ``profile_dir``.
@@ -63,10 +64,6 @@ class TrainLoopResult:
     steps_run: int = 0  # optimizer steps taken by this fit()
 
 
-def _state_dict_copy(model: nn.Module) -> Dict[str, torch.Tensor]:
-    return {k: v.detach().clone() for k, v in model.state_dict().items()}
-
-
 class Trainer:
     def __init__(self, cfg: TrainerConfig, *, model: nn.Module, loss_fn: LossFn,
                  train_data: Dict[str, np.ndarray],
@@ -99,6 +96,10 @@ class Trainer:
 
     def _upload(self, data: Dict[str, np.ndarray]) -> Batch:
         return {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in data.items()}
+
+    def snapshot_params(self) -> Dict[str, torch.Tensor]:
+        """A copy of the model's state_dict that later steps leave as it is."""
+        return {k: v.detach().clone() for k, v in self.model.state_dict().items()}
 
     # ------------------------------------------------------------------
     def _state_dict(self):
@@ -174,12 +175,16 @@ class Trainer:
         return total / valid if valid > 0 else 0.0
 
     # ------------------------------------------------------------------
-    def fit(self) -> TrainLoopResult:
+    def fit(self, *, epoch_end_callback: Optional[Callable[[int, "Trainer"], None]] = None
+            ) -> TrainLoopResult:
+        """Train to ``cfg.epochs`` (or an early stop), calling
+        ``epoch_end_callback(epoch, self)`` after each epoch's latest-state
+        save."""
         cfg = self.cfg
         generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         train_losses: List[float] = []
         val_losses: List[float] = []
-        best_params = _state_dict_copy(self.model)
+        best_params = self.snapshot_params()
         no_improve = 0
         total_examples = 0
         total_time = 0.0
@@ -237,10 +242,13 @@ class Trainer:
                 self.store.save_latest(self.step, self._state_dict())
             phase["ckpt"] += time.perf_counter() - tc
 
+            if epoch_end_callback is not None:
+                epoch_end_callback(epoch, self)
+
             if val_loss < self.best_val:
                 self.best_val = val_loss
                 no_improve = 0
-                best_params = _state_dict_copy(self.model)
+                best_params = self.snapshot_params()
                 tc = time.perf_counter()
                 self.store.save_best(best_params)
                 phase["ckpt"] += time.perf_counter() - tc
@@ -267,7 +275,7 @@ class Trainer:
                                     phase["ckpt"], steady_eps))
         return TrainLoopResult(
             best_params=best_params,
-            final_params=_state_dict_copy(self.model),
+            final_params=self.snapshot_params(),
             train_losses=train_losses,
             val_losses=val_losses,
             best_val_loss=self.best_val,

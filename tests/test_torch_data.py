@@ -173,3 +173,47 @@ def test_results_csv_logger_and_plot(tmp_path, monkeypatch):
 
     monkeypatch.setattr(builtins, "__import__", no_matplotlib)
     plotting.plot_loss_curves([1.0, 0.5], [1.1, 0.6], None)  # no path: no import
+
+
+@pytest.mark.parametrize("kw", [dict(num_items=30, dim=12, seed=3),
+                                dict(num_items=5, dim=768, num_topics=2, seed=0, noise=0.1)])
+def test_make_item_embs_equal(kw):
+    got, want = synthetic.make_item_embs(**kw), jax_synthetic.make_item_embs(**kw)
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.float32 and not got[0].any()  # row 0: the padding row
+
+
+@pytest.mark.parametrize("args", [(40, 5, 16, 2), (7, 3, 8, 9)])
+def test_make_prof_embs_equal(args):
+    (u1, e1), (u2, e2) = synthetic.make_prof_embs(*args), jax_synthetic.make_prof_embs(*args)
+    np.testing.assert_array_equal(u1, u2)
+    np.testing.assert_array_equal(e1, e2)
+
+
+def test_join_prof_embs_equal():
+    uids, embs = jax_synthetic.make_prof_embs(20, 5, 4)
+    users = np.array([3, 1, 25, 20, 3], np.int32)  # 25 is missing: a zero row
+    keep = np.arange(20) != 6
+    got = datasets.join_prof_embs(users, uids[keep], embs[keep])
+    np.testing.assert_array_equal(got, jax_datasets.join_prof_embs(users, uids[keep], embs[keep]))
+    assert not got[2].any() and np.array_equal(got[0], embs[2])
+
+
+def test_item_emb_and_prof_files_cross_read(tmp_path):
+    table = jax_synthetic.make_item_embs(9, 6, seed=1)
+    contracts.write_item_embs(str(tmp_path / "port.h5"), table, meta={"model": "x"})
+    embs, meta = jax_contracts.read_item_embs(str(tmp_path / "port.h5"))
+    np.testing.assert_array_equal(embs, table)
+    assert meta == {"model": "x", "dim": 6}
+    jax_contracts.write_item_embs(str(tmp_path / "jax.h5"), table)
+    embs, meta = contracts.read_item_embs(str(tmp_path / "jax.h5"))
+    np.testing.assert_array_equal(embs, table)
+    assert meta == {"dim": 6}
+
+    uids, prof = jax_synthetic.make_prof_embs(6, 5, 4)
+    contracts.write_prof_lvl(str(tmp_path / "p_port.h5"), uids, prof)
+    for got, want in zip(jax_contracts.read_prof_lvl(str(tmp_path / "p_port.h5")), (uids, prof)):
+        np.testing.assert_array_equal(got, want)
+    jax_contracts.write_prof_lvl(str(tmp_path / "p_jax.h5"), uids, prof)
+    for got, want in zip(contracts.read_prof_lvl(str(tmp_path / "p_jax.h5")), (uids, prof)):
+        np.testing.assert_array_equal(got, want)

@@ -133,3 +133,39 @@ def test_sasrec_entry_points_default_to_the_card(monkeypatch, tmp_path):
     assert len(fn([1], 2)) == 2
     art = sasrec_pipeline.train(cfg, data, device="cpu")
     assert next(iter(art.params.values())).device == torch.device("cpu")
+
+
+def test_semantic_id_chain_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """``rqvae_pipeline.train`` / ``infer`` and ``tiger_prefix_pipeline.train``
+    / ``evaluate`` run on the card unless given ``device="cpu"``, and raise
+    without one."""
+    from genrec_tpu_torch.configs import RQVAEConfig, TIGERPrefixConfig, TrainerConfig
+    from genrec_tpu_torch.models.rqvae import RQVAE
+    from genrec_tpu_torch.pipelines import rqvae_pipeline, tiger_prefix_pipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    trainer = TrainerConfig(epochs=1, batch_size=4, ckpt_dir=str(tmp_path / "ckpt"))
+    cfg = RQVAEConfig(in_dim=8, layers=(8,), e_dim=4, num_emb_list=(4, 4), dropout=0.0,
+                      sk_epsilons=(0.0, 0.01), kmeans_iters=2, trainer=trainer,
+                      semantic_id_file=str(tmp_path / "codes.npy"))
+    embs = np.random.default_rng(0).normal(size=(6, 8)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rqvae_pipeline.train(cfg, embs)
+    sd = RQVAE(cfg).state_dict()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rqvae_pipeline.infer(cfg, rqvae_pipeline.RQVAEArtifacts(sd, sd, None, 0.0), embs)
+    art = rqvae_pipeline.train(cfg, embs, device="cpu")
+    assert next(iter(art.params.values())).device == torch.device("cpu")
+    assert rqvae_pipeline.infer(cfg, art, embs, device="cpu").shape == (6, 3)
+
+    pcfg = TIGERPrefixConfig(trainer=trainer)
+    z = np.zeros((2, 80), np.int32)
+    prof = (np.arange(1, 3, dtype=np.int32), np.zeros((2, 5, 768), np.float32))
+    data = tiger_prefix_pipeline.attach_prof(
+        TigerArrays(z, z + 1, np.ones((2, 4), np.int32), np.arange(1, 3, dtype=np.int32)),
+        [prof] * 3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tiger_prefix_pipeline.train(pcfg, data, data)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tiger_prefix_pipeline.evaluate(pcfg, tiger_prefix_pipeline.TIGERPrefixArtifacts({}, None),
+                                       data)

@@ -162,3 +162,29 @@ def test_non_finite_loss_aborts(tmp_path, data):
     trainer.loss_fn = nan_loss
     with pytest.raises(ValueError, match="diverged"):
         trainer.fit()
+
+
+def test_epoch_end_callback_runs_once_per_epoch_with_the_trainer(tmp_path, data):
+    trainer = _port_trainer(_cfg(tmp_path, epochs=3), data)
+    seen = []
+
+    def callback(epoch, tr):
+        assert tr is trainer and tr.start_epoch == epoch
+        assert tr.store.latest_step() == tr.step  # after the epoch's latest-state save
+        seen.append((epoch, tr.snapshot_params()))
+
+    res = trainer.fit(epoch_end_callback=callback)
+    assert [e for e, _ in seen] == [1, 2, 3]
+    for k, v in res.final_params.items():  # the last snapshot is the final state
+        assert torch.equal(seen[-1][1][k], v)
+    assert not torch.equal(seen[0][1]["model.shared.weight"], seen[-1][1]["model.shared.weight"])
+
+
+def test_save_best_with_a_tag_writes_its_own_file(tmp_path):
+    store = CheckpointStore(str(tmp_path))
+    store.save_best({"w": torch.ones(2)})
+    store.save_best({"w": torch.zeros(2)}, tag="best_collision")
+    assert sorted(os.listdir(tmp_path)) == ["best.pt", "best_collision.pt"]
+    assert torch.equal(store.restore_best()["w"], torch.ones(2))
+    assert torch.equal(store.restore_best("best_collision")["w"], torch.zeros(2))
+    assert store.restore_best("other") is None
