@@ -15,15 +15,17 @@ which asserts; any failure exits non-zero and prints no result:
    the kernel, the plain version and one PyTorch library call of the same
    function (CUDA events, and the profiler's device time): the T5 forward at
    the serving shapes, the three train shapes of ``TIGERConfig()`` at batch
-   256 and the encoder and cross-attention shapes of ``TIGERPrefixConfig()``
-   (8 heads, 83 encoder tokens) with the f32 dropout mask and without it, and
-   edge cases within 1e-5
+   256, the encoder and cross-attention shapes of ``TIGERPrefixConfig()``
+   (8 heads, 83 encoder tokens) and the encoder shape of ``DenseT5Config()``
+   (4 heads over 21 right-padded positions, the mask at rate 0.3) with the
+   f32 dropout mask and without it, DenseT5's B=1 request, and edge cases
+   within 1e-5
    max abs (f32, another summation order), bit-identical between two calls,
    with its shared memory, blocks per SM, ptxas registers and spills and,
    stage by stage, its distance from the f64 forward; the T5 backward at the
    three train shapes of
-   ``TIGERConfig()`` at batch 256, the two TIGER-prefix shapes and edge
-   cases within 1e-4·max|plain| +
+   ``TIGERConfig()`` at batch 256, the two TIGER-prefix shapes, DenseT5's
+   and edge cases within 1e-4·max|plain| +
    1e-5, bit-identical between two calls (dbias by an ordered reduction, no
    atomics), with its shared memory and blocks per SM and, stage by stage,
    where its distance from the f64 backward comes from; its dbias reduction
@@ -61,14 +63,21 @@ which asserts; any failure exits non-zero and prints no result:
    4096-user corpus tokenized with those codes and three prof-vector draws,
    ``evaluate`` with the level constraint and 20 beams; one profiled step and
    a B=16 step against an f64 CPU step;
-9. drive the parity SASRec: ``sasrec_pipeline.train`` (2 epochs) and
-   ``evaluate`` on a 4096-user corpus, requests through ``sasrec_model_fn``
-   (L=20: no flash launch);
-10. print one JSON line of kernel records, the card line, and last the
+9. drive DenseT5 at ``DenseT5Config()`` widths (6 layers, d_model 512, 4
+   heads of 16, dropout 0.3) on the TIGER corpus with
+   ``make_item_embs(700, 768)`` and ``make_user_embs(4096, 768)``: a B=16
+   step against an f64 CPU step; ``train`` for 2 epochs at batch 256 (the
+   validation loss must fall), ``evaluate``, and ``dense_t5_model_fn``
+   requests from the best checkpoint, their top-10 lists equal to a CPU
+   run's; 6 launches of #1 and #2 a step, 6 of #1 a request; a profiled step;
+10. drive the parity SASRec: ``sasrec_pipeline.train`` (2 epochs) and
+    ``evaluate`` on a 4096-user corpus, requests through ``sasrec_model_fn``
+    (L=20: no flash launch);
+11. print one JSON line of kernel records, the card line, and last the
     ``{"ok": true, "device": ...}`` line.
 
-Kernel launch counts are set to 0 just before each of the paths 5-9 and read
-just after, and must equal what the path ran.
+Kernel launch counts are set to 0 just before each of the paths 5-10 and
+read just after, and must equal what the path ran.
 
 TF32 is off for matmuls and cuDNN throughout, so f32 means f32.
 """
@@ -113,6 +122,7 @@ TRAIN_USERS = 4096
 TRAIN_EPOCHS = 3
 STEP_B = 16
 RQ_EPOCHS = 20          # RQ-VAE: the reference trains 100 epochs
+DENSE_EPOCHS = 2        # DenseT5: the reference trains 100 epochs
 GREEDY_MARGIN = 1e-4    # greedy codes, card vs CPU: rows whose top-2 margin exceeds this share
                         # of the row's scale must be equal
 KERNEL_SOURCES = ("t5_attention_fwd", "t5_attention_bwd", "flash_attention_fwd",
@@ -185,13 +195,15 @@ def device_ms(fn, iters: int = 20) -> float:
 
 def attention_case(name, h, b, lq, lk, d, *, causal=False, bias=True, pad=True,
                    causal_in_bias=False, fully_masked=False, dropout=False, bias_offset=0.0,
-                   prefix=0, seed=0):
+                   prefix=0, rate=0.1, right_pad=False, seed=0):
     """Inputs of one kernel case, made from a seed with numpy, on the card.
     ``causal_in_bias`` folds the causal −1e9 into the bias, as the decoder
     passes it; ``bias_offset`` is added to every bias value (the softmax
     does not change; exp of an unshifted score would overflow); ``prefix``
     keys before the left-padded history are never masked, as TIGER-prefix's
-    3 prefix tokens."""
+    3 prefix tokens; ``right_pad`` pads the keys on the right, as DenseT5's
+    user vector and items are (key 0 always valid); the dropout mask keeps
+    each probability with 1 − ``rate`` and scales it by 1/(1 − rate) in f32."""
     r = np.random.default_rng(seed)
     dev = "cuda"
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)  # noqa: E731
@@ -200,16 +212,18 @@ def attention_case(name, h, b, lq, lk, d, *, causal=False, bias=True, pad=True,
                 causal=causal, dropout_mask=None)
     if bias:
         args["pos_bias"] = t(r.normal(size=(h, lq, lk)))
-    if pad:  # left padding, as the serving path pads histories
+    if pad:  # left padding, as the serving path pads histories, unless right_pad
         valid = r.integers(1, lk + 1, size=b)
         mask = (np.arange(lk)[None, :] >= lk - valid[:, None]).astype(np.int32)
+        if right_pad:
+            mask = mask[:, ::-1].copy()
         mask[:, :prefix] = 1
         if fully_masked:
             mask[0] = 0
         args["kv_mask"] = torch.from_numpy(mask).to(dev)
     if dropout:
-        keep = r.random((h * b, lq, lk)) > 0.1
-        args["dropout_mask"] = t(np.where(keep, 1.0 / 0.9, 0.0))
+        keep = r.random((h * b, lq, lk)) > rate
+        args["dropout_mask"] = t(np.where(keep, 1.0 / (1.0 - rate), 0.0))
     if causal_in_bias:
         row = torch.arange(lq, device=dev)[:, None]
         col = torch.arange(lk, device=dev)[None, :]
@@ -279,6 +293,11 @@ FWD_TRAIN = ("enc_train", "dec_self_train", "cross_train")
 # cross-attention from the 156-token train targets to them (name, Lq, Lk, bias, seed)
 PREFIX_CASES = (("prefix_enc", 83, 83, True, 31), ("prefix_cross", 156, 83, False, 32))
 PREFIX_SHAPES = tuple(c[0] for c in PREFIX_CASES)
+# DenseT5Config() at batch 256: 4 heads of 16 over the user vector + 20 items, the keys
+# right-padded, a bidirectional bias and no causal mask, the f32 dropout mask at rate 0.3;
+# a served request is B = 1 (4 flat rows)
+DENSE_L, DENSE_RATE = 21, 0.3
+DENSE_SHAPES = ("dense_train", "dense_serve")
 
 
 def ptxas_report(log: str, kernel: str) -> dict:
@@ -410,6 +429,16 @@ def phase_kernels():
         attention_case("d72_lq!=lk_causal", 2, 3, 40, 56, 72, causal=True, seed=21),
         attention_case("bias+100_lq156", 2, 3, 156, 156, 16, bias_offset=100.0, seed=19),
         attention_case("fully_masked_lq156", 2, 3, 156, 156, 16, fully_masked=True, seed=22),
+        # DenseT5Config(): 21 queries fill 2 strips of 16 and 21 keys 2 tiles of 8 and a
+        # tail of 5; 84-byte bias rows; padding query rows 21 -> 32 under a bias that e^s
+        # would overflow
+        attention_case("dense_train", 4, BATCH, DENSE_L, DENSE_L, 16, dropout=True,
+                       rate=DENSE_RATE, right_pad=True, seed=41),
+        attention_case("dense_train_no_dropout", 4, BATCH, DENSE_L, DENSE_L, 16,
+                       right_pad=True, seed=41),
+        attention_case("dense_serve", 4, 1, DENSE_L, DENSE_L, 16, right_pad=True, seed=42),
+        attention_case("bias+100_l21", 4, 3, DENSE_L, DENSE_L, 16, bias_offset=100.0,
+                       right_pad=True, seed=43),
     ]
     results = {}
     for name, a in cases:
@@ -426,11 +455,11 @@ def phase_kernels():
         del exact
         tol = TOL if a["qf"].shape[2] <= 64 else WIDE_TOL
         assert err <= tol, f"{name}: kernel vs plain max abs {err} > {tol}"
-        if name in ("enc_train", "dec_self_train", *PREFIX_SHAPES):
+        if name in ("enc_train", "dec_self_train", *PREFIX_SHAPES, *DENSE_SHAPES):
             again = ta.fused_t5_attention_flat(*args, dropout_rate=rate, **kw)
             assert torch.equal(out, again), f"{name}: two calls differ"
             print(f"[kernel] t5_attention_fwd {name}: out bit-identical between two calls")
-        iters = 200 if name in ("serve", "bench") else 20
+        iters = 200 if name in ("serve", "bench", "dense_serve") else 20
         kernel = lambda: ta.fused_t5_attention_flat(*args, dropout_rate=rate, **kw)  # noqa: E731
         plain = lambda: ta.t5_attention_reference(*args, **kw)  # noqa: E731
         fns = [kernel, plain]
@@ -454,7 +483,7 @@ def phase_kernels():
               f"ms={dev[0]:.5f} plain_ms={dev[1]:.5f} library_ms={dev[2]} | "
               f"bound_ms={bound_ms:.6f} ({bound_by}, 3xTF32 products), f32-SIMT "
               f"{f32_ms:.6f} ({f32_by})")
-        if name in FWD_TRAIN:
+        if name in (*FWD_TRAIN, "dense_train"):
             lq, lk, d = a["qf"].shape[1], a["kf"].shape[1], a["qf"].shape[2]
             smem, per_sm = ta.fwd_occupancy(lq, lk, d)
             results[name].update(smem_bytes=smem, blocks_per_sm=per_sm)
@@ -465,7 +494,7 @@ def phase_kernels():
             print(f"[kernel] t5_attention_fwd {name} against the f64 forward (max|f64| "
                   f"{src['max_abs_f64']:.4f}), max|x - f64|: " + "; ".join(
                       f"{key} {e:.3e}" for key, e in src.items() if key != "max_abs_f64"))
-    for name in FWD_TRAIN:
+    for name in (*FWD_TRAIN, "dense_train"):
         r, r0 = results[name], results[f"{name}_no_dropout"]
         print(f"[kernel] t5_attention_fwd {name}: device ms {r['device_ms']:.5f} with the dropout "
               f"mask (bound {r['bound_ms']:.5f}), {r0['device_ms']:.5f} without (bound "
@@ -474,12 +503,14 @@ def phase_kernels():
 
 
 def bwd_case(name, h, b, lq, lk, d, *, causal=False, bias=True, pad=True, causal_in_bias=False,
-             fully_masked=False, dropout=True, bias_offset=0.0, prefix=0, seed=0):
+             fully_masked=False, dropout=True, bias_offset=0.0, prefix=0, rate=0.1,
+             right_pad=False, seed=0):
     """Inputs of one backward case (the forward's inputs of
     :func:`attention_case` plus an output gradient), on the card."""
     name, a = attention_case(name, h, b, lq, lk, d, causal=causal, bias=bias, pad=pad,
                              causal_in_bias=causal_in_bias, fully_masked=fully_masked,
-                             dropout=dropout, bias_offset=bias_offset, prefix=prefix, seed=seed)
+                             dropout=dropout, bias_offset=bias_offset, prefix=prefix,
+                             rate=rate, right_pad=right_pad, seed=seed)
     r = np.random.default_rng(seed + 1000)
     a["do"] = torch.from_numpy(r.normal(size=(h * b, lq, d)).astype(np.float32)).cuda()
     return name, a
@@ -746,6 +777,13 @@ def phase_bwd_kernels():
         bwd_case("bias+100_lq156", 2, 3, 156, 156, 16, bias_offset=100.0, seed=19),
         bwd_case("d128_80", 2, 3, 80, 80, 128, seed=20),  # A fragments reloaded
         bwd_case("d72_lq!=lk_causal", 2, 3, 40, 56, 72, causal=True, seed=21),  # ragged D
+        # DenseT5Config() at batch 256 (see phase_kernels), with the rate-0.3 mask and without
+        bwd_case("dense_train", 4, BATCH, DENSE_L, DENSE_L, 16, rate=DENSE_RATE, right_pad=True,
+                 seed=41),
+        bwd_case("dense_train_no_dropout", 4, BATCH, DENSE_L, DENSE_L, 16, dropout=False,
+                 right_pad=True, seed=41),
+        bwd_case("bias+100_l21", 4, 3, DENSE_L, DENSE_L, 16, bias_offset=100.0, right_pad=True,
+                 seed=43),
     ]
     results = {}
     for name, a in cases:
@@ -775,7 +813,7 @@ def phase_bwd_kernels():
             lib_note = why or "SDPA backward, bias gradient through the additive mask"
             if lib is not None:
                 fns.append(lib)
-        if name in ("enc_train", "dec_self_train", *PREFIX_SHAPES):
+        if name in ("enc_train", "dec_self_train", *PREFIX_SHAPES, "dense_train"):
             again = ta.t5_attention_bwd(*args, **kw)
             same = [g is None or torch.equal(g, h) for g, h in zip(got, again)]
             assert all(same), f"{name}: two calls differ in (dq, dk, dv, dbias): {same}"
@@ -797,7 +835,7 @@ def phase_bwd_kernels():
               f"ms={dev[0]:.5f} plain_ms={dev[1]:.5f} library_ms={dev[2]} | "
               f"bound_ms={bound_ms:.6f} ({bound_by}, 3xTF32 products), f32-SIMT "
               f"{f32_ms:.6f} ({f32_by}) | library: {lib_note}")
-        if name in TRAIN_SHAPES:
+        if name in (*TRAIN_SHAPES, "dense_train"):
             lq, lk, d = a["qf"].shape[1], a["kf"].shape[1], a["qf"].shape[2]
             smem, per_sm = ta.bwd_occupancy(lq, lk, d)
             results[name].update(smem_bytes=smem, blocks_per_sm=per_sm)
@@ -809,7 +847,7 @@ def phase_bwd_kernels():
                   f"max|f64| of " + ", ".join(src["kernel"]) + ": " + "; ".join(
                       f"{key} " + " ".join(f"{e:.3e}" for e in errs.values())
                       for key, errs in src.items()))
-    for name in TRAIN_SHAPES:
+    for name in (*TRAIN_SHAPES, "dense_train"):
         r0 = results[f"{name}_no_dropout"]
         print(f"[kernel] t5_attention_bwd {name} without dropout: kernel {r0['ms']:.5f} ms "
               f"(device {r0['device_ms']:.5f}) against SDPA backward {r0['library_ms']} ms "
@@ -1718,7 +1756,8 @@ def t5_step_parity(tag, cpu, arrays, loss_fn):
             # relative to max(max|f64|, TOL): a gradient that is 0 in exact arithmetic
             # (the adapters' key bias shifts every score of a query alike) holds f32 noise
             worst[name] = max(worst[name], (err / max(scale, TOL), k))
-    print(f"[{tag}] B={STEP_B} Lt={arrays['labels'].shape[1]} dropout 0 ReLU: loss card "
+    lt = f" Lt={arrays['labels'].shape[1]}" if "labels" in arrays else ""
+    print(f"[{tag}] B={STEP_B}{lt} dropout 0 ReLU: loss card "
           f"{out['card'][0]:.7f}, "
           f"CPU f32 {out['cpu'][0]:.7f}, CPU f64 {loss_ref:.7f} (card |diff| {loss_err:.2e}); "
           f"{len(ref)} gradients against the f64 step with the card's ReLU decisions, worst "
@@ -2161,6 +2200,200 @@ def phase_tiger_prefix(tmp, tr, te):
                 metrics=metrics)
 
 
+def dense_corpus():
+    """DenseT5's data: the TIGER corpus, make_interactions(4096 users, 700
+    items, 4..41 items each, seed 0), with make_item_embs(700, 768) and
+    make_user_embs(4096, 768) as the item and user-profile tables."""
+    from genrec_tpu_torch.configs import DenseT5Config
+    from genrec_tpu_torch.data.synthetic import make_interactions, make_item_embs, make_user_embs
+
+    cfg = DenseT5Config()
+    corpus = make_interactions(num_users=TRAIN_USERS, num_items=N_ITEMS, min_len=4,
+                               max_len=41, seed=0)
+    return (corpus, make_item_embs(N_ITEMS, cfg.input_emb_dim),
+            make_user_embs(TRAIN_USERS, cfg.input_emb_dim))
+
+
+def _dense_query_scores(model, items, hist):
+    """Cosine scores (N_items + 1,) of one served history, computed as
+    ``dense_t5_model_fn`` computes them (zero profile vector), on the
+    model's device, returned on the CPU."""
+    from genrec_tpu_torch.configs import DenseT5Config
+
+    dev = next(model.parameters()).device
+    ln = DenseT5Config().max_seq_len
+    ids = [i for i in hist if 0 < i <= N_ITEMS][-ln:]
+    seq = np.zeros((1, ln + 1, items.shape[1]), np.float32)
+    seq[0, 1:1 + len(ids)] = items[np.asarray(ids, np.int64)]
+    mask = (np.arange(ln + 1)[None, :] <= len(ids)).astype(np.int32)
+    table = torch.from_numpy(items).to(dev)
+    table = table / torch.clamp(torch.linalg.vector_norm(table, dim=1, keepdim=True), min=1e-8)
+    pred = model.generate(torch.from_numpy(seq).to(dev), torch.from_numpy(mask).to(dev))
+    return (pred @ table.T)[0].cpu()
+
+
+def phase_dense_t5(tmp, corpus, items, users):
+    """The DenseT5 path at ``DenseT5Config()`` widths (6 layers, d_model 512,
+    4 heads of 16, d_ff 256, 768-dimensional inputs and targets, 20 items
+    after the user vector, dropout 0.3, τ 0.07): (a) a B=16 step at dropout
+    0 against an f64 CPU step; (b) ``train`` for ``DENSE_EPOCHS`` epochs at
+    batch 256; (c) ``evaluate``; (d) ``dense_t5_model_fn`` answering B=1
+    requests from (b)'s best checkpoint, held against a CPU run; (e) the
+    launches of #1, #2 and the dbias reduction, counted from 0 around each
+    of (b), (c) and (d) and around one train step; (f) a profiled step."""
+    import dataclasses
+
+    from genrec_tpu_torch.configs import DenseT5Config
+    from genrec_tpu_torch.data.datasets import build_dense_t5_arrays, num_batches
+    from genrec_tpu_torch.models.dense_t5 import DenseT5
+    from genrec_tpu_torch.ops import t5_attention as ta
+    from genrec_tpu_torch.pipelines import dense_t5_pipeline as dtp
+    from genrec_tpu_torch.serving.model_fn import dense_t5_model_fn
+    from genrec_tpu_torch.train.checkpoint import restore_best
+    from genrec_tpu_torch.train.trainer import Trainer
+
+    base = DenseT5Config()
+    a = base.arch
+    assert (a.d_model, a.num_layers, a.num_heads, a.d_kv, a.d_ff, a.dropout_rate,
+            base.input_emb_dim, base.target_emb_dim, base.max_seq_len, base.temperature) == (
+        512, 6, 4, 16, 256, DENSE_RATE, 768, 768, DENSE_L - 1, 0.07), base
+    cfg = dataclasses.replace(base, trainer=dataclasses.replace(
+        base.trainer, epochs=DENSE_EPOCHS, batch_size=BATCH, eval_batch_size=BATCH,
+        ckpt_dir=os.path.join(tmp, "dense_ckpt"), seed=0))
+    tr = build_dense_t5_arrays(corpus, base.max_seq_len, "train")
+    te = build_dense_t5_arrays(corpus, base.max_seq_len, "test")
+    steps_per_epoch = num_batches(len(tr.history_ids), BATCH)
+    val_batches = num_batches(len(te.history_ids), BATCH)
+    print(f"[dense-t5] {len(tr.history_ids)} train rows ({steps_per_epoch} steps an epoch), "
+          f"{len(te.history_ids)} test rows, item table {items.shape}, user table "
+          f"{users.shape}")
+
+    # (a) one step at dropout 0 against the f64 CPU step, tables in the step's type
+    cfg0 = dataclasses.replace(base, arch=dataclasses.replace(a, dropout_rate=0.0))
+
+    def parity_loss(model, batch, generator):
+        p = next(model.parameters())
+        tables = [torch.from_numpy(t).to(p.device, p.dtype) for t in (items, users)]
+        return dtp.make_loss_fn(cfg0, *tables)(model, batch, generator)
+
+    t5_step_parity("dense-t5-step", DenseT5(cfg0, generator=torch.Generator().manual_seed(1))
+                   .train(), tr.arrays, parity_loss)
+
+    # (b) training, counts at 0 just before and read just after
+    ta.launches = ta.bwd_launches = ta.dbias_reduce_launches = 0
+    art = dtp.train(cfg, corpus, items, users, device="cuda")
+    torch.cuda.synchronize()
+    train_counts = (ta.launches, ta.bwd_launches, ta.dbias_reduce_launches)
+    res = art.result
+    print(f"[dense-t5] losses by epoch (train): {[round(x, 5) for x in res.train_losses]}; "
+          f"val: {[round(x, 5) for x in res.val_losses]}")
+    assert all(np.isfinite(res.train_losses + res.val_losses)), res.train_losses
+    assert res.epochs_run == DENSE_EPOCHS and res.val_losses[-1] < res.val_losses[0], res
+    steps = res.steps_run
+    assert steps == DENSE_EPOCHS * steps_per_epoch, steps
+    # #1 in the 6 encoder self-attentions of each step and validation batch; #2 and the
+    # dbias reduction in each of their backwards (every layer's bias learns)
+    want = (6 * steps + 6 * DENSE_EPOCHS * val_batches, 6 * steps, 6 * steps)
+    print(f"[launches] DenseT5 training: (t5_attention_fwd, t5_attention_bwd, "
+          f"t5_attention_dbias_reduce) = {train_counts} (want 6 x {steps} steps + 6 x "
+          f"{DENSE_EPOCHS * val_batches} val batches, 6 x {steps}, 6 x {steps} = {want})")
+    assert train_counts == want, (train_counts, want)
+    ph = res.phase_seconds
+    steady_steps = (res.epochs_run - 1) * steps_per_epoch
+    ms_step = (ph["train"] - ph["first_epoch"]) / steady_steps * 1e3
+    print(f"[dense-t5] B={BATCH}, {steps_per_epoch} steps/epoch: "
+          f"{res.steady_examples_per_sec:.1f} train examples/s and {ms_step:.2f} ms/step over "
+          f"epochs 2-{res.epochs_run} (host clock); first epoch {ph['first_epoch']:.2f} s, "
+          f"val {ph['val']:.2f} s, ckpt {ph['ckpt']:.2f} s")
+
+    # (c) evaluate
+    ta.launches = ta.bwd_launches = ta.dbias_reduce_launches = 0
+    metrics = dtp.evaluate(cfg, art, corpus, items, users, device="cuda")
+    torch.cuda.synchronize()
+    eval_counts = (ta.launches, ta.bwd_launches, ta.dbias_reduce_launches)
+    eval_batches = num_batches(len(te.history_ids), cfg.trainer.eval_batch_size)
+    assert set(metrics) == {f"{m}@{k}" for m in ("Recall", "NDCG") for k in cfg.topk_list}
+    assert all(0.0 <= v <= 1.0 for v in metrics.values()), metrics
+    print(f"[dense-t5] evaluate: " + ", ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+    print(f"[launches] DenseT5 evaluate: {eval_counts} ({eval_counts[0] / eval_batches:g} of #1 "
+          f"per batch of {cfg.trainer.eval_batch_size}, {eval_batches} batches)")
+    assert eval_counts == (6 * eval_batches, 0, 0), eval_counts
+
+    # (d) serving from (b)'s best checkpoint, B = 1
+    rng = np.random.default_rng(5)
+    histories = [[], [int(i) for i in rng.integers(1, N_ITEMS + 1, size=3)],
+                 [int(i) for i in rng.choice(np.arange(1, N_ITEMS + 1), 20, replace=False)],
+                 [0, N_ITEMS + 3, -2] + [int(i) for i in rng.integers(1, N_ITEMS + 1, size=25)]]
+    ta.launches = ta.bwd_launches = ta.dbias_reduce_launches = 0
+    fn = dense_t5_model_fn(cfg.trainer.ckpt_dir, items, cfg=cfg, device="cuda")
+    served = []
+    for hist in histories:
+        before = ta.launches
+        got = fn(hist, TOP_K)
+        torch.cuda.synchronize()
+        assert ta.launches - before == 6, f"{ta.launches - before} launches for one request"
+        valid_hist = {i for i in hist if 0 < i <= N_ITEMS}
+        assert len(got) == TOP_K == len(set(got)), got
+        assert all(1 <= i <= N_ITEMS for i in got) and not set(got) & valid_hist, (got, hist)
+        served.append(got)
+        print(f"[dense-t5 serve] history of {len(hist)} ids -> {got}")
+    n_req = 20
+    t0 = time.perf_counter()
+    for _ in range(n_req):
+        fn(histories[2], TOP_K)
+    torch.cuda.synchronize()
+    req_s = n_req / (time.perf_counter() - t0)
+    serve_counts = (ta.launches, ta.bwd_launches, ta.dbias_reduce_launches)
+    print(f"[dense-t5 serve] {req_s:.2f} requests/s (20-item history, {n_req} requests, host "
+          f"clock); launches {serve_counts} over {len(histories) + n_req} requests")
+    assert serve_counts == (6 * (len(histories) + n_req), 0, 0), serve_counts
+
+    # the CPU on the same weights: the same top-10 lists, scores within GEN_TOL
+    cpu_fn = dense_t5_model_fn(cfg.trainer.ckpt_dir, items, cfg=cfg, device="cpu")
+    models = {}
+    for dev in ("cuda", "cpu"):
+        models[dev] = DenseT5(cfg)
+        models[dev].load_state_dict(restore_best(cfg.trainer.ckpt_dir))
+        models[dev].to(dev).eval()
+    worst = 0.0
+    for hist, got in zip(histories, served):
+        assert cpu_fn(hist, TOP_K) == got, (hist, got)
+        card_s, cpu_s = (_dense_query_scores(models[d], items, hist) for d in ("cuda", "cpu"))
+        worst = max(worst, (card_s[got] - cpu_s[got]).abs().max().item())
+    assert worst <= GEN_TOL, f"DenseT5 top-10 scores card vs CPU max abs {worst} > {GEN_TOL}"
+    print(f"[dense-t5 serve] {len(histories)} requests: top-{TOP_K} lists equal to the CPU "
+          f"run's, their scores within {worst:.3e}")
+
+    # (e) one train step's launches, (f) its profile: a fresh trainer, outside (b)-(d)
+    items_d, users_d = (torch.from_numpy(t).cuda() for t in (items, users))
+    trainer = Trainer(dataclasses.replace(cfg.trainer, ckpt_dir=os.path.join(tmp, "dense_prof")),
+                      model=dtp.build_model(cfg), loss_fn=dtp.make_loss_fn(cfg, items_d, users_d),
+                      train_data=tr.arrays, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = trainer.gather(trainer.train_data, torch.arange(BATCH, device="cuda"))
+    ta.launches = ta.bwd_launches = ta.dbias_reduce_launches = 0
+    trainer.train_step(batch, gen)
+    torch.cuda.synchronize()
+    step_counts = (ta.launches, ta.bwd_launches, ta.dbias_reduce_launches)
+    print(f"[launches] one DenseT5 train step: {step_counts} (want (6, 6, 6)); per evaluate "
+          f"batch {eval_counts[0] // eval_batches}; per request 6")
+    assert step_counts == (6, 6, 6), step_counts
+    prof = profile_window(f"one DenseT5 train step (B={BATCH}, L={DENSE_L}, dropout "
+                          f"{DENSE_RATE})", lambda: trainer.train_step(batch, gen), top_n=12)
+    busy = None
+    if prof is not None:
+        busy = prof[0] / 1e3 / ms_step
+        print(f"[dense-t5] device busy {prof[0] / 1e3:.3f} ms per step against {ms_step:.2f} ms "
+              f"per step on the host clock without the profiler: {100 * busy:.1f}% busy")
+    profile_window("one DenseT5 request (20-item history)", lambda: fn(histories[2], TOP_K))
+    fwd = train_counts[0] + eval_counts[0] + serve_counts[0]
+    return dict(fwd=fwd, bwd=train_counts[1], reduce=train_counts[2],
+                fwd_by_path={"train": train_counts[0], "evaluate": eval_counts[0],
+                             "serve": serve_counts[0]},
+                examples_s=res.steady_examples_per_sec, ms_step=ms_step, busy=busy,
+                device_ms=None if prof is None else prof[0] / 1e3, metrics=metrics, req_s=req_s)
+
+
 def profile_window(label, work, reps: int = 3, top_n: int = 6):
     """Device busy time against host wall time over ``reps`` calls of
     ``work`` (torch.profiler, after one warm-up), and the ``top_n`` device
@@ -2269,12 +2502,14 @@ def main() -> int:
         train = phase_train(tmp, tr, te, codes)
         rq_codes, rqvae = phase_rqvae(tmp)
         prefix = phase_tiger_prefix(tmp, *prefix_corpus(rq_codes))
+        dense = phase_dense_t5(tmp, *dense_corpus())
         lc_serve = phase_sasrec_large_serve()
         phase_sasrec_large_train_parity()
         phase_sasrec(tmp)
         lc_train = phase_sasrec_large_train()
     assert launches > 0 and train["fwd"] > 0 and train["bwd"] > 0
     assert prefix["fwd"] > 0 and prefix["bwd"] > 0 and prefix["reduce"] > 0
+    assert dense["fwd"] > 0 and dense["bwd"] > 0 and dense["reduce"] > 0
     assert lc_serve["fwd"] > 0 and all(n > 0 for n in lc_train["counts"][0])
     assert all(n > 0 for n in lc_train["counts"][1])
     bench = results["bench"]
@@ -2283,9 +2518,10 @@ def main() -> int:
         "name": "t5_attention_fwd", "route": "cuda",
         "source": "genrec_tpu_torch/csrc/t5_attention_fwd.cu",
         "replaces": "genrec_tpu/ops/t5_attention.py:115",
-        "launches": launches + train["fwd"] + prefix["fwd"],
+        "launches": launches + train["fwd"] + prefix["fwd"] + dense["fwd"],
         "launches_by_path": {"serve": launches, "train": train["fwd"],
-                             "tiger_prefix": prefix["fwd"]},
+                             "tiger_prefix": prefix["fwd"],
+                             **{f"dense_t5_{k}": n for k, n in dense["fwd_by_path"].items()}},
         "max_abs_err": max(r["max_abs_err"] for r in results.values()),
         "ms": bench["ms"], "plain_ms": bench["plain_ms"], "bound_ms": bench["bound_ms"],
         "bound_by": bench["bound_by"], "bound_ms_f32": bench["bound_ms_f32"],
@@ -2313,14 +2549,23 @@ def main() -> int:
         "prefix_shapes": "prefix_enc: q/k/v (8*256, 83, 16), bias (8, 83, 83), mask (256, 83) "
                          "with 3 prefix ones; prefix_cross: q (8*256, 156, 16), k/v (8*256, 83, "
                          "16), mask (256, 83); f32 dropout mask unless _no_dropout",
+        **{f"{k}_{m}": results[k][m] for k in DENSE_SHAPES
+           for m in ("ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms", "bound_ms_f32",
+                     "max_abs_err", "library_ms", "library_device_ms")},
+        **{f"dense_train_no_dropout_{m}": results["dense_train_no_dropout"][m]
+           for m in ("ms", "device_ms", "bound_ms", "library_ms", "library_device_ms")},
+        "dense_shapes": "dense_train: q/k/v (4*256, 21, 16), bias (4, 21, 21), right-padded "
+                        "mask (256, 21), f32 dropout mask at rate 0.3 (none in _no_dropout); "
+                        "dense_serve: q/k/v (4*1, 21, 16), no dropout mask",
     }
     dec, dec0 = bwd["dec_self_train"], bwd["dec_self_train_no_dropout"]
     bwd_record = {
         "name": "t5_attention_bwd", "route": "cuda",
         "source": "genrec_tpu_torch/csrc/t5_attention_bwd.cu",
         "replaces": "genrec_tpu/ops/t5_attention.py:129",
-        "launches": train["bwd"] + prefix["bwd"],
-        "launches_by_path": {"serve": 0, "train": train["bwd"], "tiger_prefix": prefix["bwd"]},
+        "launches": train["bwd"] + prefix["bwd"] + dense["bwd"],
+        "launches_by_path": {"serve": 0, "train": train["bwd"], "tiger_prefix": prefix["bwd"],
+                             "dense_t5_train": dense["bwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in bwd.values()),
         "max_rel_err": max(r["max_rel_err"] for r in bwd.values()),
         "ms": dec["ms"], "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
@@ -2347,15 +2592,21 @@ def main() -> int:
         **{f"{k}_no_dropout_{m}": bwd[f"{k}_no_dropout"][m] for k in PREFIX_SHAPES
            for m in ("ms", "device_ms", "bound_ms", "library_ms", "library_device_ms")},
         "dbias_reduce_launches_by_path": {"train": train["reduce"],
-                                          "tiger_prefix": prefix["reduce"]},
+                                          "tiger_prefix": prefix["reduce"],
+                                          "dense_t5_train": dense["reduce"]},
+        **{f"dense_train_{m}": bwd["dense_train"][m]
+           for m in ("ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms", "bound_ms_f32",
+                     "max_rel_err", "smem_bytes", "blocks_per_sm")},
+        **{f"dense_train_no_dropout_{m}": bwd["dense_train_no_dropout"][m]
+           for m in ("ms", "device_ms", "bound_ms", "library_ms", "library_device_ms")},
     }
     reduce_record = {
         "name": "t5_attention_dbias_reduce", "route": "cuda",
         "source": "genrec_tpu_torch/csrc/t5_attention_bwd.cu",
         "replaces": "genrec_tpu/ops/t5_attention.py:157 (the dbias sum of _bwd_kernel)",
-        "launches": train["reduce"] + prefix["reduce"],
+        "launches": train["reduce"] + prefix["reduce"] + dense["reduce"],
         "launches_by_path": {"serve": 0, "train": train["reduce"],
-                             "tiger_prefix": prefix["reduce"]},
+                             "tiger_prefix": prefix["reduce"], "dense_t5_train": dense["reduce"]},
         "max_abs_err": reduce["max_abs_err"], "ms": reduce["ms"], "plain_ms": reduce["plain_ms"],
         "bound_ms": reduce["bound_ms"], "bound_by": reduce["bound_by"],
         "library_ms": reduce["library_ms"], "device_ms": reduce["device_ms"],
@@ -2373,8 +2624,11 @@ def main() -> int:
           f"{rqvae['rounds']} repair rounds, collision rate before the 4th digit "
           f"{rqvae['rate']:.4f}; TIGER-prefix: {prefix['examples_s']:.1f} train examples/s, "
           f"{prefix['ms_step']:.2f} ms/train step, device {prefix['device_ms']} ms/step, busy "
-          f"share {prefix['busy']}, Recall@10 {prefix['metrics']['Recall@10']:.4f}; "
-          f"{time.perf_counter() - t_start:.1f} s")
+          f"share {prefix['busy']}, Recall@10 {prefix['metrics']['Recall@10']:.4f}; DenseT5: "
+          f"{dense['examples_s']:.1f} train examples/s, {dense['ms_step']:.2f} ms/train step, "
+          f"device {dense['device_ms']} ms/step, busy share {dense['busy']}, "
+          f"{dense['req_s']:.2f} requests/s, Recall@10 {dense['metrics']['Recall@10']:.4f}; "
+          f"script {time.perf_counter() - t_start:.1f} s")
     kernels = [fwd_record, bwd_record, reduce_record] + flash_records(flash, flash_build,
                                                                       lc_serve, lc_train)
     print(json.dumps({"kernels": kernels}))

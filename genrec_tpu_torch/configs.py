@@ -2,12 +2,12 @@
 
 A copy of ``genrec_tpu.configs``' ``MeshConfig``, ``TrainerConfig``,
 ``RQVAEConfig``, ``T5ArchConfig``, ``TIGERConfig``, ``TIGERPrefixConfig``,
-``SASRecConfig``, ``ShardedEmbeddingConfig``, ``SASRecLargeConfig`` and
-``long_context_sasrec_config``: the same fields with the same defaults, so
+``DenseT5Config``, ``SASRecConfig``, ``ShardedEmbeddingConfig``,
+``SASRecLargeConfig`` and ``long_context_sasrec_config``: the same fields with the same defaults, so
 that a configuration compares field for field with the reference's.
 Defaults reproduce the reference configurations (`RQ-VAE/main.py:6-36`,
 `RQVAE-T5/main.py:4-35`, `RQVAE-T5/model.py:9-23`,
-`RQVAE-T5-prefix/main.py:4-43`, `SASRec/main.py:6-42`).
+`RQVAE-T5-prefix/main.py:4-43`, `T5/main.py:5-38`, `SASRec/main.py:6-42`).
 
 ``T5ArchConfig.fused_attention`` stays as a field for that comparison, but
 the port does not read it: the port always runs attention without a KV
@@ -188,6 +188,46 @@ class TIGERPrefixConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DenseT5Config:
+    """Dense-retrieval T5 encoder. Mirrors `T5/main.py:5-38`.
+
+    num_layers=6, NOT the param dict's 2: the reference's model builder
+    (`T5/model.py:9-16`) constructs ``T5Config(d_model, d_ff, num_heads,
+    d_kv, dropout_rate)`` and never forwards ``params['num_layers']``, so
+    the HF default ``num_layers=6`` silently applies — the model the
+    reference actually trains is 6-layer (its own log reports 19,603,328
+    params = 16,449,536 dead default 32128-vocab embedding + 3,153,792
+    non-embedding; 6 blocks at d512/d_ff256/H4/d_kv16 = 2.37M plus the
+    768↔512 in/out projections 0.79M reproduces that exactly, while 2
+    blocks would give ~1.58M + 0.79M). We default to the
+    reference's *effective* architecture so head-to-heads are
+    like-for-like; the param dict's stated intent (2 layers) is available
+    by overriding ``arch``.
+    """
+
+    task_id: str = "task1"
+    rec_path: str = "data/user_item_interact.h5"
+    item_emb_h5_path: str = "data/course_item_embs.h5"
+    user_emb_h5_path: str = "data/user_profile_embs.h5"
+    arch: T5ArchConfig = dataclasses.field(
+        default_factory=lambda: T5ArchConfig(
+            d_model=512, num_layers=6, num_heads=4, d_kv=16, d_ff=256,
+            dropout_rate=0.3,
+        )
+    )
+    input_emb_dim: int = 768
+    target_emb_dim: int = 768
+    temperature: float = 0.07
+    max_seq_len: int = 20
+    topk_list: Tuple[int, ...] = (2, 5, 10, 20)
+    trainer: TrainerConfig = dataclasses.field(
+        default_factory=lambda: TrainerConfig(batch_size=256, eval_batch_size=256,
+                                              epochs=100, lr=1e-3)
+    )
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+
+
+@dataclasses.dataclass(frozen=True)
 class SASRecConfig:
     """SASRec self-attentive ranker. Mirrors `SASRec/main.py:6-42`."""
 
@@ -217,7 +257,7 @@ class SASRecConfig:
 class ShardedEmbeddingConfig:
     """The item table of ``SASRecLarge``: (vocab_size, dim) rows. The port
     runs it on one device in float32 only (``models/sasrec_large.py``); the
-    sharded lookups and the bf16 table are ROADMAP Queue 1 item 10."""
+    sharded lookups and the bf16 table are ROADMAP Queue 1 item 4."""
 
     vocab_size: int = 10_000_000
     dim: int = 64

@@ -6,6 +6,7 @@ the state_dict of the port's module at the same config:
 ``tiger_params_from_flax`` (``models.tiger.TIGER``),
 ``tiger_prefix_params_from_flax`` (``models.tiger_prefix.TIGERPrefix``),
 ``rqvae_params_from_flax`` (``models.rqvae.RQVAE``),
+``dense_t5_params_from_flax`` (``models.dense_t5.DenseT5``),
 ``sasrec_params_from_flax`` (``models.sasrec.SASRec``) and
 ``sasrec_large_params_from_flax`` (``models.sasrec_large.SASRecLarge``).
 The mapping:
@@ -36,8 +37,8 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from genrec_tpu_torch.configs import (RQVAEConfig, SASRecConfig, SASRecLargeConfig,
-                                      TIGERConfig, TIGERPrefixConfig)
+from genrec_tpu_torch.configs import (DenseT5Config, RQVAEConfig, SASRecConfig,
+                                      SASRecLargeConfig, TIGERConfig, TIGERPrefixConfig)
 
 # SASRecBlock's Flax submodules are auto-named in call order (sasrec.py:48-68)
 _SASREC_BLOCK_NAMES = {"Dense_0": "q", "Dense_1": "k", "Dense_2": "v", "Dense_3": "out",
@@ -136,6 +137,19 @@ def rqvae_params_from_flax(tree: Mapping, cfg: Optional[RQVAEConfig] = None
     with torch.device("meta"):
         module = RQVAE(cfg)
     return _state_from_flax(tree, module, rename)
+
+
+def dense_t5_params_from_flax(tree: Mapping, cfg: Optional[DenseT5Config] = None
+                              ) -> Dict[str, torch.Tensor]:
+    """Flax DenseT5 variables → the port's DenseT5 state_dict: the encoder
+    stack under ``encoder.encoder`` (no ``shared`` embedding, as in the Flax
+    tree), and ``input_proj`` / ``output_proj`` with their kernels
+    transposed and their biases as they are."""
+    from genrec_tpu_torch.models.dense_t5 import DenseT5
+
+    with torch.device("meta"):
+        module = DenseT5(cfg or DenseT5Config())
+    return _state_from_flax(tree, module)
 
 
 def sasrec_params_from_flax(tree: Mapping, item_num: int,

@@ -10,6 +10,8 @@ code file, item embedding, interaction, TIGER-split and prof_lvl parts.
   read at `SASRec/data_vision.py:40-46`).
 - ``course_item_embs.h5``: ``item_embs`` (N_items + 1, D) f32, row 0 the
   padding row, and a JSON ``meta`` string.
+- ``user_profile_embs.h5``: ``user_embs`` (N, D) f32, row i is user i+1
+  (indexed ``user_id - 1`` at `T5/data_vision.py:137`).
 - ``prof_lvl{1,2,3}.h5``: ``user_id`` (N,) int32 and ``user_major_embs``
   (N, 5, 768) f32, the top-5 major vectors of each user at one level.
 - ``tiger/{train,test}_dataset.h5``: ``user_id`` int32, ``history`` /
@@ -79,6 +81,23 @@ def read_item_embs(path: str):
             if isinstance(raw, bytes):
                 meta = json.loads(raw.decode("utf-8"))
     return embs, meta
+
+
+def write_user_embs(path: str, user_embs: np.ndarray) -> None:
+    """Row i corresponds to user_id i+1 (contiguous 1-based users)."""
+    import h5py
+
+    _ensure_parent(path)
+    with h5py.File(path, "w") as f:
+        f.create_dataset("user_embs", data=np.asarray(user_embs, dtype=np.float32),
+                         compression="gzip")
+
+
+def read_user_embs(path: str) -> np.ndarray:
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return f["user_embs"][:].astype(np.float32)
 
 
 def write_prof_lvl(path: str, user_ids: np.ndarray, user_major_embs: np.ndarray) -> None:

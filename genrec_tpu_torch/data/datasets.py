@@ -1,7 +1,8 @@
-"""Fixed-shape SASRec and TIGER arrays and batch iterators: copies of
-``genrec_tpu/data/datasets.py``'s ``SASRecArrays``, ``build_sasrec_arrays``
-and ``build_tiger_arrays`` (their Python paths, not the native packer),
-``TigerArrays``, ``num_batches``, ``iterate_batches`` and
+"""Fixed-shape SASRec, TIGER and DenseT5 arrays and batch iterators: copies
+of ``genrec_tpu/data/datasets.py``'s ``SASRecArrays``,
+``build_sasrec_arrays``, ``build_tiger_arrays`` and
+``build_dense_t5_arrays`` (their Python paths, not the native packer),
+``TigerArrays``, ``DenseT5Arrays``, ``num_batches``, ``iterate_batches`` and
 ``join_prof_embs``.
 
 SASRec train rows: input = seq[:-1], target = seq[1:], the last ``max_len``
@@ -9,8 +10,9 @@ kept, left-padded with 0; test rows: leave-one-out (input = seq[:-1],
 target = seq[-1]) (`SASRec/data_vision.py:51-87`). TIGER histories are
 left-padded with [0]*code_dim to ``max_len`` items
 (`RQVAE-T5/data_vision.py:33-55`), labels padded with -100, attention
-mask = (token != 0). Every batch has a static shape; the last partial
-batch is padded and flagged by a ``valid`` mask.
+mask = (token != 0). DenseT5 samples are item ids, right-padded with 0
+(`T5/data_vision.py:87-117`). Every batch has a static shape; the last
+partial batch is padded and flagged by a ``valid`` mask.
 """
 
 from __future__ import annotations
@@ -163,3 +165,63 @@ def join_prof_embs(user_ids: np.ndarray, prof_user_ids: np.ndarray,
     found = rows >= 0
     out[found] = prof_embs[rows[found]]
     return out
+
+
+@dataclasses.dataclass
+class DenseT5Arrays:
+    """Sliding-window dense-retrieval samples, stored as item ids (the
+    embeddings are gathered on the device at step time)."""
+
+    history_ids: np.ndarray  # (N, max_seq_len) int32, right-padded with 0
+    seq_lens: np.ndarray     # (N,) int32 — history length (excl. user emb)
+    target_ids: np.ndarray   # (N,) int32
+    user_ids: np.ndarray     # (N,) int32
+
+    @property
+    def arrays(self) -> Batch:
+        return {"history_ids": self.history_ids, "seq_lens": self.seq_lens,
+                "target_ids": self.target_ids, "user_ids": self.user_ids}
+
+
+def build_dense_t5_arrays(data: InteractionData, max_seq_len: int, mode: str,
+                          min_seq_len: int = 2) -> DenseT5Arrays:
+    """Sliding-window (train) / leave-one-out (test) samples.
+
+    Matches `T5/data_vision.py:87-117`: train targets range over positions
+    1..n-2 (the last item is test-only), histories keep the most recent
+    ``max_seq_len`` items, right-padded here (mask built at batch time).
+    """
+    hist_rows: List[np.ndarray] = []
+    lens: List[int] = []
+    tgts: List[int] = []
+    uids: List[int] = []
+    for uid, seq in zip(data.user_ids, data.item_id_lists):
+        seq = list(np.asarray(seq, dtype=np.int64))
+        if len(seq) < min_seq_len:
+            continue
+        if mode == "train":
+            end_idx = len(seq) - 2
+            for i in range(1, end_idx + 1):
+                h = seq[max(0, i - max_seq_len):i]
+                row = np.zeros(max_seq_len, np.int32)
+                row[:len(h)] = h
+                hist_rows.append(row)
+                lens.append(len(h))
+                tgts.append(int(seq[i]))
+                uids.append(int(uid))
+        elif mode == "test":
+            h = seq[max(0, len(seq) - 1 - max_seq_len):len(seq) - 1]
+            row = np.zeros(max_seq_len, np.int32)
+            row[:len(h)] = h
+            hist_rows.append(row)
+            lens.append(len(h))
+            tgts.append(int(seq[-1]))
+            uids.append(int(uid))
+        else:
+            raise ValueError(mode)
+    return DenseT5Arrays(
+        history_ids=np.stack(hist_rows) if hist_rows else np.zeros((0, max_seq_len), np.int32),
+        seq_lens=np.asarray(lens, dtype=np.int32),
+        target_ids=np.asarray(tgts, dtype=np.int32),
+        user_ids=np.asarray(uids, dtype=np.int32),
+    )

@@ -1,7 +1,7 @@
 """Synthetic corpora, embeddings and semantic-ID tables for the smoke run and
 the tests: copies of ``genrec_tpu/data/synthetic.py``'s ``make_interactions``,
-``make_item_embs``, ``make_codes`` and ``make_prof_embs``, which give the
-same arrays from the same seed.
+``make_item_embs``, ``make_user_embs``, ``make_codes`` and ``make_prof_embs``,
+which give the same arrays from the same seed.
 
 Sequences follow a power-law item popularity with per-user Markov topic
 drift, which is enough structure for a retriever to beat random.
@@ -92,6 +92,13 @@ def make_item_embs(num_items: int, dim: int = 768, num_topics: int = 16,
     table = np.zeros((num_items + 1, dim), dtype=np.float32)
     table[1:] = embs
     return table
+
+
+def make_user_embs(num_users: int, dim: int = 768, seed: int = 1) -> np.ndarray:
+    """(num_users, dim) f32 profile embeddings (user_profile_embs.h5): row i
+    is user i+1."""
+    rng = np.random.default_rng(seed)
+    return rng.normal(0, 1.0, size=(num_users, dim)).astype(np.float32) * 0.5
 
 
 def make_codes(num_items: int, codebook_size: int = 8, num_levels: int = 3,

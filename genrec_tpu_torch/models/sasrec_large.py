@@ -12,7 +12,7 @@ at the long-context configuration (``configs.long_context_sasrec_config``,
 L ≥ 512) its attention runs through the flash kernels whenever no attention
 dropout is drawn (``ops/attention.dot_product_attention``).
 
-Still to port (ROADMAP Queue 1 item 10): the row-sharded table with its
+Still to port (ROADMAP Queue 1 item 4): the row-sharded table with its
 psum and all_to_all lookups, ``sharded_topk_scores``, ring attention over a
 context-parallel axis, and the bf16 table.
 """
@@ -30,7 +30,7 @@ from genrec_tpu_torch.configs import SASRecLargeConfig
 from genrec_tpu_torch.models.sasrec import SASRecBlock, _bce
 from genrec_tpu_torch.ops.negative_sampling import sample_negatives
 
-_ITEM_10 = "ROADMAP Queue 1 item 10 (the distributed layer)"
+_ITEM_4 = "ROADMAP Queue 1 item 4 (the distributed layer)"
 
 
 class SASRecLarge(nn.Module):
@@ -42,12 +42,12 @@ class SASRecLarge(nn.Module):
                  ctx_axis: Optional[str] = None, generator: Optional[torch.Generator] = None):
         super().__init__()
         if use_sharded:
-            raise NotImplementedError(f"the row-sharded item table is {_ITEM_10}; "
+            raise NotImplementedError(f"the row-sharded item table is {_ITEM_4}; "
                                       "pass use_sharded=False")
         if ctx_axis is not None:
-            raise NotImplementedError(f"ring attention over a context axis is {_ITEM_10}")
+            raise NotImplementedError(f"ring attention over a context axis is {_ITEM_4}")
         if cfg.embedding.dtype != "float32":
-            raise NotImplementedError(f"the {cfg.embedding.dtype} item table is {_ITEM_10}")
+            raise NotImplementedError(f"the {cfg.embedding.dtype} item table is {_ITEM_4}")
         self.item_num = item_num
         self.cfg = cfg
         dim = cfg.embedding.dim

@@ -1,12 +1,13 @@
-"""Scratch T5 encoder-decoder in PyTorch, with training-mode dropout.
+"""Scratch T5 encoder-decoder, and the encoder-only ``T5Encoder``, in
+PyTorch, with training-mode dropout.
 
 Counterpart of ``genrec_tpu/models/t5.py`` with the same numerics: RMS
 layer norm (no bias or mean), relative-position bucket biases (one table
 per stack, bidirectional for the encoder only), bias-free projections,
 unscaled attention, relu feed-forward, tied embeddings with d_model**-0.5
 logit rescaling, decoder_start = pad. Module and parameter names follow
-the reference's Flax tree, so ``convert.tiger_params_from_flax`` maps it
-leaf for leaf.
+the reference's Flax tree, so ``convert.tiger_params_from_flax`` and
+``convert.dense_t5_params_from_flax`` map them leaf for leaf.
 
 Attention takes one of two paths:
 - without a KV cache (encoder self-attention; the decoder's self- and
@@ -344,6 +345,16 @@ def cross_entropy_with_ignore(logits: torch.Tensor, labels: torch.Tensor,
     return nll.sum() / torch.clamp(valid.sum(), min=1)
 
 
+def _reset_stack_parameters(root: nn.Module, generator: Optional[torch.Generator]):
+    """Draw the weights of every T5 stack under ``root`` from the reference's
+    initialisers (normal with the Flax stddevs; RMSNorm weights at 1)."""
+    for m in root.modules():
+        if isinstance(m, (RelativePositionBias, T5Attention, T5FeedForward)):
+            m.reset_parameters(generator)
+        elif isinstance(m, RMSNorm):
+            nn.init.ones_(m.weight)
+
+
 class T5EncoderDecoder(nn.Module):
     def __init__(self, cfg: T5ArchConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -361,11 +372,7 @@ class T5EncoderDecoder(nn.Module):
         """Re-draw every weight from the reference's initialisers (normal
         with the Flax stddevs; RMSNorm weights at 1), from ``generator``."""
         _normal_(self.shared.weight, 1.0, generator)
-        for m in self.modules():
-            if isinstance(m, (RelativePositionBias, T5Attention, T5FeedForward)):
-                m.reset_parameters(generator)
-            elif isinstance(m, RMSNorm):
-                nn.init.ones_(m.weight)
+        _reset_stack_parameters(self, generator)
 
     def encode(self, input_ids=None, attention_mask=None, inputs_embeds=None,
                generator: Optional[torch.Generator] = None):
@@ -407,3 +414,29 @@ class T5EncoderDecoder(nn.Module):
         decoder_input_ids = shift_right(labels, c.decoder_start_token_id, c.pad_token_id)
         logits = self.decode(decoder_input_ids, enc_out, attention_mask, generator)
         return cross_entropy_with_ignore(logits, labels), logits
+
+
+class T5Encoder(nn.Module):
+    """Encoder-only stack (HF `T5EncoderModel`, used by DenseT5): the
+    reference's ``T5Encoder`` on ``inputs_embeds``. It holds no ``shared``
+    embedding: Flax creates one only when ``input_ids`` are given, and the
+    one caller in the repo (DenseT5) always passes ``inputs_embeds``, so the
+    reference's parameter tree has none. Its self-attention takes the
+    structured-bias route (kernels #1 and #2), with the bidirectional
+    relative-position bias and the (B, L) key mask."""
+
+    def __init__(self, cfg: T5ArchConfig, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.dtype != "float32":
+            raise NotImplementedError("the port computes in float32 only so far")
+        self.cfg = cfg
+        self.encoder = T5Stack(cfg, cfg.num_layers, is_decoder=False)
+        _reset_stack_parameters(self, generator)
+
+    def forward(self, input_ids=None, attention_mask=None, inputs_embeds=None,
+                generator: Optional[torch.Generator] = None):
+        if input_ids is not None or inputs_embeds is None:
+            raise NotImplementedError(
+                "T5Encoder takes inputs_embeds only: no caller in the repo embeds input_ids "
+                "through it, so it has no shared embedding")
+        return self.encoder(inputs_embeds, attention_mask, generator=generator)

@@ -1,9 +1,9 @@
 """Trained-model recommend functions of the port.
 
-Counterpart of ``genrec_tpu/serving/model_fn.py``'s ``sasrec_model_fn``
-and ``tiger_model_fn``: load the best checkpoint and return a plain
-``fn(history_ids, top_k) -> [item_id]``. ``dense_t5_model_fn`` and the route
-table come with later slices.
+Counterpart of ``genrec_tpu/serving/model_fn.py``'s ``sasrec_model_fn``,
+``tiger_model_fn`` and ``dense_t5_model_fn``: load the best checkpoint and
+return a plain ``fn(history_ids, top_k) -> [item_id]``. The route table
+comes with a later slice.
 """
 
 from __future__ import annotations
@@ -14,10 +14,12 @@ from typing import Callable, List, Optional, Union
 import numpy as np
 import torch
 
-from genrec_tpu_torch.configs import SASRecConfig, TIGERConfig
+from genrec_tpu_torch.configs import DenseT5Config, SASRecConfig, TIGERConfig
 from genrec_tpu_torch.data import tiger_tokens
-from genrec_tpu_torch.data.contracts import InteractionData, read_codes, read_interactions
+from genrec_tpu_torch.data.contracts import (InteractionData, read_codes, read_interactions,
+                                             read_item_embs)
 from genrec_tpu_torch.device import resolve_device
+from genrec_tpu_torch.models.dense_t5 import DenseT5
 from genrec_tpu_torch.models.sasrec import SASRec
 from genrec_tpu_torch.models.tiger import TIGER, generate, make_constraint
 from genrec_tpu_torch.train.checkpoint import restore_best
@@ -112,5 +114,61 @@ def tiger_model_fn(ckpt_dir: str, codes_path: str, cfg: Optional[TIGERConfig] = 
             if len(out) >= int(top_k):
                 break
         return out
+
+    return fn
+
+
+def dense_t5_model_fn(ckpt_dir: str, item_emb_h5: Union[str, np.ndarray],
+                      cfg: Optional[DenseT5Config] = None,
+                      user_emb: Optional[np.ndarray] = None,
+                      device=None) -> Optional[Callable[[List[int], int], List[int]]]:
+    """Serve the best DenseT5 checkpoint of ``ckpt_dir`` by encoder retrieval.
+
+    ``item_emb_h5`` is the item-embedding file or its (N_items + 1, D) table
+    (row 0 padding). History item ids in (0, n_items], the last
+    ``cfg.max_seq_len`` of them, gather their embeddings (right-padded,
+    `T5/data_vision.py:131-154` layout) after the position-0 profile
+    embedding: ``user_emb``, or zeros (a cold profile; the route carries
+    history only). The encoder gives one query vector; its cosine scores
+    against the normalised item table, with the padding row at −1e9 and the
+    history at −inf, give the top ``min(top_k, n_items)`` items. Returns None
+    when no best checkpoint exists.
+    """
+    dev = resolve_device(device)
+    if isinstance(item_emb_h5, str):
+        cfg = cfg or DenseT5Config(item_emb_h5_path=item_emb_h5)
+        item_embs, _ = read_item_embs(item_emb_h5)
+    else:
+        item_embs = item_emb_h5
+    cfg = cfg or DenseT5Config()
+    item_embs = np.asarray(item_embs, np.float32)
+    n_items = len(item_embs) - 1                     # row 0 = padding
+    state = restore_best(ckpt_dir)
+    if state is None:
+        return None
+    model = DenseT5(cfg)
+    model.load_state_dict(state)
+    model.to(dev).eval()
+    norms = np.linalg.norm(item_embs, axis=1, keepdims=True)
+    item_norm = torch.from_numpy(item_embs / np.maximum(norms, 1e-8)).to(dev)
+    L = cfg.max_seq_len
+    prof = (np.zeros((cfg.input_emb_dim,), np.float32)
+            if user_emb is None else np.asarray(user_emb, np.float32))
+
+    @torch.no_grad()
+    def fn(history: List[int], top_k: int) -> List[int]:
+        ids = [int(i) for i in history if 0 < int(i) <= n_items][-L:]
+        seq = np.zeros((1, L + 1, cfg.input_emb_dim), np.float32)
+        seq[0, 0] = prof
+        if ids:
+            seq[0, 1:1 + len(ids)] = item_embs[np.asarray(ids, np.int64)]
+        mask = (np.arange(L + 1)[None, :] <= len(ids)).astype(np.int32)
+        _, pred = model(torch.from_numpy(seq).to(dev), torch.from_numpy(mask).to(dev))
+        scores = (pred @ item_norm.T)[0]
+        scores[0] = -1e9
+        scores = scores.cpu().numpy()
+        scores[np.asarray(ids, np.int64)] = -np.inf  # rated exclusion
+        k = min(int(top_k), n_items)
+        return [int(t) for t in np.argsort(-scores)[:k]]
 
     return fn

@@ -18,8 +18,9 @@ single-device, device-resident path:
   abort on a non-finite loss, and an ``epoch_end_callback(epoch, trainer)``
   after each epoch's latest-state save.
 
-Still to port (ROADMAP): sharded and multi-process datasets, length
-buckets, composite widths, batch factories and ``profile_dir``.
+Still to port (ROADMAP Queue 1 items 4 and 5): sharded and multi-process
+datasets, length buckets, composite widths and ``profile_dir``. The
+reference's batch-factory ``fit`` is left out until a caller needs it.
 """
 
 from __future__ import annotations

@@ -169,3 +169,34 @@ def test_semantic_id_chain_entry_points_default_to_the_card(monkeypatch, tmp_pat
     with pytest.raises(RuntimeError, match="CUDA"):
         tiger_prefix_pipeline.evaluate(pcfg, tiger_prefix_pipeline.TIGERPrefixArtifacts({}, None),
                                        data)
+
+
+def test_dense_t5_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """``dense_t5_pipeline.train`` / ``evaluate`` and ``dense_t5_model_fn``
+    run on the card unless given ``device="cpu"``, and raise without one."""
+    from genrec_tpu_torch.configs import DenseT5Config, T5ArchConfig, TrainerConfig
+    from genrec_tpu_torch.data.contracts import write_item_embs
+    from genrec_tpu_torch.models.dense_t5 import DenseT5
+    from genrec_tpu_torch.pipelines import dense_t5_pipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = DenseT5Config(arch=T5ArchConfig(d_model=8, num_layers=1, num_heads=1, d_kv=8, d_ff=8),
+                        input_emb_dim=4, target_emb_dim=4, max_seq_len=3,
+                        trainer=TrainerConfig(epochs=1, batch_size=2,
+                                              ckpt_dir=str(tmp_path / "ckpt")))
+    data = InteractionData(np.arange(1, 4, dtype=np.int32), ["a", "b", "c"],
+                           [np.array([1, 2, 3, 4], np.int32)] * 3)
+    items = np.ones((5, 4), np.float32)
+    users = np.ones((3, 4), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dense_t5_pipeline.train(cfg, data, items, users)
+    art = dense_t5_pipeline.train(cfg, data, items, users, device="cpu")
+    assert next(iter(art.params.values())).device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dense_t5_pipeline.evaluate(cfg, art, data, items, users)
+    ckpt, h5 = str(tmp_path / "served"), str(tmp_path / "items.h5")
+    save_best(DenseT5(cfg).state_dict(), ckpt)
+    write_item_embs(h5, items)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model_fn.dense_t5_model_fn(ckpt, h5, cfg)
+    assert len(model_fn.dense_t5_model_fn(ckpt, h5, cfg, device="cpu")([1], 2)) == 2

@@ -74,7 +74,7 @@ def test_configs_compare_field_for_field():
     jc, tc = JaxTIGERConfig(), TIGERConfig()
     assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
     for name in ("SASRecConfig", "ShardedEmbeddingConfig", "SASRecLargeConfig", "RQVAEConfig",
-                 "TIGERPrefixConfig"):
+                 "TIGERPrefixConfig", "DenseT5Config"):
         j, t = getattr(jconfigs, name)(), getattr(tconfigs, name)()
         assert type(t).__name__ == name and dataclasses.asdict(j) == dataclasses.asdict(t)
     for args in ((), (4096, 16)):
