@@ -73,10 +73,22 @@ which asserts; any failure exits non-zero and prints no result:
 10. drive the parity SASRec: ``sasrec_pipeline.train`` (2 epochs) and
     ``evaluate`` on a 4096-user corpus, requests through ``sasrec_model_fn``
     (L=20: no flash launch);
-11. print one JSON line of kernel records, the card line, and last the
+11. ``[app]``: ``/api/v1/recommend/model`` through the stdlib HTTP server in
+    a thread, backed on the card by the TIGER, DenseT5 and SASRec
+    checkpoints of 6, 9 and 10: lists equal to the model fn's own, 2 and 6
+    launches of #1 a TIGER and DenseT5 request, ids outside the catalog
+    dropped as JAX drops them, HTTP and direct requests/s, device ms and
+    busy share a request; ``make_sasrec_recommend_fn`` on an id past its
+    table answers JAX's pinned list;
+12. ``[cli]``: ``init-db``, ``view-db`` and ``serve --tiger-ckpt`` through
+    ``cli``, in process and as a ``python3 -m genrec_tpu_torch.cli serve``
+    subprocess answering the same lists (the card's machine has no h5py, so
+    ``synth`` and the training subcommands, whose files are H5, are held by
+    the CPU tests);
+13. print one JSON line of kernel records, the card line, and last the
     ``{"ok": true, "device": ...}`` line.
 
-Kernel launch counts are set to 0 just before each of the paths 5-10 and
+Kernel launch counts are set to 0 just before each of the paths 5-12 and
 read just after, and must equal what the path ran.
 
 TF32 is off for matmuls and cuDNN throughout, so f32 means f32.
@@ -1499,6 +1511,277 @@ def phase_sasrec(tmp):
           f"{res.steady_examples_per_sec:.1f} train examples/s (epoch 2, host clock); "
           + ", ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
     print(f"[sasrec] served {served[1]} for history [1, 2, 3]; flash launches {counts}")
+    return data, cfg
+
+
+APP_HISTORIES = ([], [3, 250, 612], list(range(101, 121)))   # empty, 3 and 20 items
+APP_OOB = [0, N_ITEMS + 5, -3, 7, 12]   # ids outside (0, 700] besides 7 and 12
+APP_PAIRS = 200   # timed HTTP requests and direct calls a model, alternated in pairs
+
+
+def _post_model(port, history, top_k=TOP_K):
+    """``POST /api/v1/recommend/model``: the answer's item ids."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/api/v1/recommend/model",
+                                 data=json.dumps({"history": history, "top_k": top_k}).encode(),
+                                 method="POST", headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        assert r.status == 200, r.status
+        body = json.loads(r.read())
+    assert body["success"] is True, body
+    return [row["item_id"] for row in body["data"]]
+
+
+def _p10_50_90(xs):
+    return np.percentile(xs, [10, 50, 90]).tolist()
+
+
+def _fmt(xs):
+    return "/".join(f"{x:.3f}" for x in xs)
+
+
+def _get(port, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as r:
+        assert r.status == 200, r.status
+        return json.loads(r.read())
+
+
+def phase_app(tmp, codes, items, sas_data, sas_cfg):
+    """[app]: ``/api/v1/recommend/model`` in process, through the stdlib
+    HTTP server on port 0, with card-backed model fns from the checkpoints
+    the earlier phases saved: TIGER's from ``phase_train`` (its context built
+    by ``cli.make_context``: ``serve --tiger-ckpt`` needs only the code
+    file), DenseT5's from ``phase_dense_t5`` and SASRec's from
+    ``phase_sasrec`` (their contexts by ``AppContext.create`` from the
+    in-memory tables: the card's machine has no h5py for the H5 files
+    ``make_context`` reads). For each model: the empty, 3-item and 20-item
+    histories answer over HTTP the lists of the same fn called directly,
+    with 2 launches of #1 a TIGER request, 6 a DenseT5 request and none of
+    any kernel a SASRec request (L = 20: plain attention); a history with ids
+    outside (0, 700] answers what the fn gives without them (JAX's
+    ``tiger_model_fn``, ``dense_t5_model_fn`` and ``sasrec_model_fn`` drop
+    them; tests/test_torch_tiger.py pins it); 200 requests over HTTP and 200
+    direct calls, alternated in pairs, give the two rates and the spread of
+    HTTP minus direct within a pair; a profiled request gives device ms and
+    the busy share. ``/health`` and ``/api/v1/courses`` (the DB's
+    ``class_index``) answer too. Then ``make_sasrec_recommend_fn`` on the
+    card answers an id past the table as JAX's does: NaN logits, so the
+    padding row and the history first, then the NaN ids in the order NumPy's
+    argsort leaves them."""
+    import threading
+
+    from genrec_tpu_torch import cli
+    from genrec_tpu_torch.backend.api import AppContext
+    from genrec_tpu_torch.backend.config import Settings
+    from genrec_tpu_torch.backend.server import BackendHTTPServer
+    from genrec_tpu_torch.configs import DenseT5Config
+    from genrec_tpu_torch.data.contracts import write_codes
+    from genrec_tpu_torch.models.sasrec import SASRec
+    from genrec_tpu_torch.ops import t5_attention as ta
+    from genrec_tpu_torch.serving.app import make_sasrec_recommend_fn
+    from genrec_tpu_torch.serving.model_fn import dense_t5_model_fn, sasrec_model_fn
+    from genrec_tpu_torch.train.checkpoint import restore_best
+
+    data_dir = os.path.join(tmp, "app_data")
+    write_codes(os.path.join(data_dir, "course", "course_rqvae_codes.npy"), codes)
+    db_path = os.path.join(tmp, "app.db")
+    settings = Settings(database_path=db_path)
+    tiger_args = cli.build_parser().parse_args(
+        ["serve", "--data-dir", data_dir, "--db", db_path, "--port", "0",
+         "--tiger-ckpt", os.path.join(tmp, "train_ckpt"), "--device", "cuda"])
+    contexts = {"tiger": cli.make_context(tiger_args)}
+    contexts["dense_t5"] = AppContext.create(settings=settings, model_recommend_fn=dense_t5_model_fn(
+        os.path.join(tmp, "dense_ckpt"), items, cfg=DenseT5Config(), device="cuda"))
+    contexts["sasrec"] = AppContext.create(settings=settings, model_recommend_fn=sasrec_model_fn(
+        sas_cfg.trainer.ckpt_dir, sas_data, sas_cfg, device="cuda"))
+    contexts["tiger"].db.executemany(
+        "INSERT OR REPLACE INTO class_index (class_id, class_name, url) VALUES (?,?,?)",
+        [(i, f"course {i}", f"u{i}") for i in range(1, N_ITEMS + 1)])
+    per_request = {"tiger": 2, "dense_t5": 6, "sasrec": 0}
+    out = {}
+    for name, ctx in contexts.items():
+        assert ctx.model_recommend_fn is not None, name
+        fn = ctx.model_recommend_fn
+        srv = BackendHTTPServer(ctx, "127.0.0.1", 0)
+        thread = threading.Thread(target=srv.serve_forever, args=(0.05,), daemon=True)
+        thread.start()
+        port = srv.server_address[1]
+        try:
+            assert _get(port, "/health")["status"] == "healthy"
+            courses = _get(port, "/api/v1/courses")["data"]
+            assert len(courses) == N_ITEMS and courses[0] == {"item_id": 1, "name": "course 1",
+                                                               "url": "u1"}, courses[:2]
+            want = [fn(h, TOP_K) for h in APP_HISTORIES + (APP_OOB,)]
+            want_oob = fn([i for i in APP_OOB if 0 < i <= N_ITEMS], TOP_K)
+            # ---- the main path: counts at 0 just before, read just after ----
+            ta.launches = ta.bwd_launches = ta.dbias_reduce_launches = 0
+            _reset_flash_counts()
+            got = []
+            for hist in APP_HISTORIES + (APP_OOB,):
+                before = ta.launches
+                got.append(_post_model(port, hist))
+                assert ta.launches - before == per_request[name], (name, ta.launches - before)
+            # one HTTP request and one direct call a pair, their order swapped every
+            # pair so that a drift of the shared host falls on both alike
+            http_ms, direct_ms = [], []
+            calls = {"http": (lambda: _post_model(port, APP_HISTORIES[2]), http_ms),
+                     "direct": (lambda: fn(APP_HISTORIES[2], TOP_K), direct_ms)}
+            for i in range(APP_PAIRS):
+                for kind in (("http", "direct") if i % 2 == 0 else ("direct", "http")):
+                    call, times = calls[kind]
+                    t0 = time.perf_counter()
+                    call()
+                    times.append(1e3 * (time.perf_counter() - t0))
+            counts = (ta.launches, ta.bwd_launches, ta.dbias_reduce_launches, _flash_counts())
+            # ---- end ----
+            n_http = len(got) + APP_PAIRS
+            assert counts == (per_request[name] * (n_http + APP_PAIRS), 0, 0, (0, 0, 0)), \
+                (name, counts)
+            assert got == want, (name, got, want)
+            assert got[-1] == want_oob, (name, got[-1], want_oob)
+            for hist, items_ in zip(APP_HISTORIES, got):
+                assert 1 <= len(items_) <= TOP_K and len(set(items_)) == len(items_), items_
+                assert all(1 <= i <= N_ITEMS for i in items_), items_
+                assert not set(items_) & set(hist), (items_, hist)
+            http_s, direct_s = 1e3 * APP_PAIRS / sum(http_ms), 1e3 * APP_PAIRS / sum(direct_ms)
+            gap_ms = np.subtract(http_ms, direct_ms)
+            print(f"[app] {name}: HTTP lists equal the direct fn's for histories of 0, 3 and 20 "
+                  f"items and {APP_OOB} (= the fn without the ids outside (0, {N_ITEMS}]): "
+                  f"{got[2]}; launches (#1, #2, dbias, flash) {counts} over {n_http} HTTP "
+                  f"requests and {APP_PAIRS} direct calls ({per_request[name]} of #1 each)")
+            prof = profile_window(f"one {name} HTTP request (20-item history)",
+                                  lambda: _post_model(port, APP_HISTORIES[2]))
+            dprof = profile_window(f"one {name} direct call (20-item history)",
+                                   lambda: fn(APP_HISTORIES[2], TOP_K))
+            out[name] = dict(
+                http_req_s=http_s, direct_req_s=direct_s, launches=counts[0], n_http=n_http,
+                http_ms_p10_50_90=_p10_50_90(http_ms), direct_ms_p10_50_90=_p10_50_90(direct_ms),
+                gap_ms_p10_50_90=_p10_50_90(gap_ms),
+                device_ms=None if prof is None else prof[0] / 1e3,
+                busy=None if prof is None else prof[0] / prof[1],
+                direct_device_ms=None if dprof is None else dprof[0] / 1e3,
+                direct_busy=None if dprof is None else dprof[0] / dprof[1])
+            print(f"[app] {name}: {http_s:.2f} requests/s over HTTP, {direct_s:.2f} calling the "
+                  f"fn directly ({APP_PAIRS} of each, alternated in pairs, host clock); ms a "
+                  f"request p10/p50/p90: HTTP {_fmt(out[name]['http_ms_p10_50_90'])}, direct "
+                  f"{_fmt(out[name]['direct_ms_p10_50_90'])}, HTTP minus direct within a pair "
+                  f"{_fmt(out[name]['gap_ms_p10_50_90'])}; device {out[name]['device_ms']} ms "
+                  f"per HTTP request, busy share {out[name]['busy']}")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            thread.join(timeout=30)
+            assert not thread.is_alive()
+    for ctx in contexts.values():
+        ctx.db.close()
+
+    # make_sasrec_recommend_fn on the card: an id past the table, and negative ids
+    model = SASRec(sas_data.max_item_id, sas_cfg)
+    model.load_state_dict(restore_best(sas_cfg.trainer.ckpt_dir))
+    cpu_fn = make_sasrec_recommend_fn(copy.deepcopy(model).eval(), sas_cfg.max_len)
+    card_fn = make_sasrec_recommend_fn(model.to("cuda").eval(), sas_cfg.max_len)
+    n = sas_data.max_item_id + 1
+    nan_logits = np.full(n, np.nan, np.float32)
+    nan_logits[[0, 3]] = -1e9
+    pinned = np.argsort(-nan_logits)[:TOP_K].tolist()
+    assert set(pinned[:2]) == {0, 3}, pinned
+    _reset_flash_counts()
+    assert card_fn([3, n + 50], TOP_K) == pinned
+    for hist in ([-1, 4], [-n, 2], [5, 9, 2]):
+        assert card_fn(hist, TOP_K) == cpu_fn(hist, TOP_K), hist
+    assert _flash_counts() == (0, 0, 0)
+    print(f"[app] make_sasrec_recommend_fn on the card: [3, {n + 50}] -> {pinned} (JAX's "
+          f"pinned list: NaN logits, nothing past the table put on the card); negative ids "
+          f"[-1, 4], [-{n}, 2] and [5, 9, 2] give the CPU's lists")
+    return out
+
+
+def phase_cli(tmp, codes):
+    """[cli]: the user's entry point on the card's machine, which has no
+    h5py: every contract ``synth`` and the training subcommands write is H5,
+    so they are held by the CPU tests (tests/test_torch_cli.py), and this
+    phase runs what needs none. ``init-db`` and ``view-db`` through
+    ``cli.main``; ``serve --tiger-ckpt`` (the code file and the checkpoint
+    ``phase_train`` saved) in process through ``cli.make_context``, 2
+    launches of #1 a request; then one ``python3 -m genrec_tpu_torch.cli
+    serve`` subprocess on a free port, on the card by default: ``/health``
+    polled for up to 60 s, the three histories answered with the in-process
+    lists, and the process still alive when it is terminated."""
+    import contextlib
+    import io
+    import socket
+    import urllib.error
+
+    from genrec_tpu_torch import cli
+    from genrec_tpu_torch.data.contracts import write_codes
+    from genrec_tpu_torch.ops import t5_attention as ta
+
+    data_dir, db_path = os.path.join(tmp, "cli_data"), os.path.join(tmp, "cli_app.db")
+    tiger_ckpt = os.path.join(tmp, "train_ckpt")
+    write_codes(os.path.join(data_dir, "course", "course_rqvae_codes.npy"), codes)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["init-db", "--db", db_path])
+        cli.main(["init-db", "--db", db_path])   # re-running never duplicates
+        cli.main(["view-db", "--db", db_path])
+        cli.main(["view-db", "--db", db_path, "--table", "students", "-n", "5"])
+    text = buf.getvalue()
+    rows = dict(re.findall(r"^(\w+)\s+(\d+) rows$", text, re.M))
+    assert len(rows) == 13 and rows["students"] == "2" and rows["admin_profiles"] == "1", text
+    assert '"student_id": "S002"' in text, text
+    print(f"[cli] init-db twice and view-db: 13 tables, {rows['students']} students, "
+          f"{rows['admin_profiles']} admin")
+
+    args = cli.build_parser().parse_args(["serve", "--data-dir", data_dir, "--db", db_path,
+                                          "--tiger-ckpt", tiger_ckpt, "--port", "0"])
+    ctx = cli.make_context(args)   # --device unset: the card
+    # ---- the main path: counts at 0 just before, read just after ----
+    ta.launches = ta.bwd_launches = ta.dbias_reduce_launches = 0
+    lists = [ctx.model_recommend_fn(h, TOP_K) for h in APP_HISTORIES]
+    torch.cuda.synchronize()
+    counts = (ta.launches, ta.bwd_launches, ta.dbias_reduce_launches)
+    # ---- end ----
+    ctx.db.close()
+    assert counts == (2 * len(APP_HISTORIES), 0, 0), counts
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    log_path = os.path.join(tmp, "serve.log")
+    cmd = [sys.executable, "-m", "genrec_tpu_torch.cli", "serve", "--data-dir", data_dir,
+           "--db", db_path, "--tiger-ckpt", tiger_ckpt, "--port", str(port)]
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        while True:
+            assert proc.poll() is None, (f"serve exited with {proc.returncode}: "
+                                         + open(log_path).read()[-3000:])
+            try:
+                assert _get(port, "/health")["status"] == "healthy"
+                break
+            except (urllib.error.URLError, ConnectionError):
+                assert time.perf_counter() - t0 < 60, "serve: /health not up within 60 s"
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+        served = [_post_model(port, h) for h in APP_HISTORIES]
+        assert served == lists, (served, lists)
+        assert proc.poll() is None, open(log_path).read()[-3000:]
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    print(f"[cli] `python3 -m genrec_tpu_torch.cli serve --tiger-ckpt` answered /health "
+          f"{up_s:.1f} s after start and the three histories with the in-process lists "
+          f"({served[1]}); terminated with {proc.returncode}")
+    return dict(fwd=counts[0], up_s=up_s)
 
 
 def _history_batch(rng, n_rows, cfg, table):
@@ -2502,14 +2785,19 @@ def main() -> int:
         train = phase_train(tmp, tr, te, codes)
         rq_codes, rqvae = phase_rqvae(tmp)
         prefix = phase_tiger_prefix(tmp, *prefix_corpus(rq_codes))
-        dense = phase_dense_t5(tmp, *dense_corpus())
+        corpus, items, users = dense_corpus()
+        dense = phase_dense_t5(tmp, corpus, items, users)
         lc_serve = phase_sasrec_large_serve()
         phase_sasrec_large_train_parity()
-        phase_sasrec(tmp)
+        sas_data, sas_cfg = phase_sasrec(tmp)
+        app = phase_app(tmp, codes, items, sas_data, sas_cfg)
+        cli_run = phase_cli(tmp, codes)
         lc_train = phase_sasrec_large_train()
     assert launches > 0 and train["fwd"] > 0 and train["bwd"] > 0
     assert prefix["fwd"] > 0 and prefix["bwd"] > 0 and prefix["reduce"] > 0
     assert dense["fwd"] > 0 and dense["bwd"] > 0 and dense["reduce"] > 0
+    app_fwd = app["tiger"]["launches"] + app["dense_t5"]["launches"]
+    assert app_fwd > 0 and cli_run["fwd"] > 0
     assert lc_serve["fwd"] > 0 and all(n > 0 for n in lc_train["counts"][0])
     assert all(n > 0 for n in lc_train["counts"][1])
     bench = results["bench"]
@@ -2518,10 +2806,12 @@ def main() -> int:
         "name": "t5_attention_fwd", "route": "cuda",
         "source": "genrec_tpu_torch/csrc/t5_attention_fwd.cu",
         "replaces": "genrec_tpu/ops/t5_attention.py:115",
-        "launches": launches + train["fwd"] + prefix["fwd"] + dense["fwd"],
+        "launches": (launches + train["fwd"] + prefix["fwd"] + dense["fwd"] + app_fwd
+                     + cli_run["fwd"]),
         "launches_by_path": {"serve": launches, "train": train["fwd"],
                              "tiger_prefix": prefix["fwd"],
-                             **{f"dense_t5_{k}": n for k, n in dense["fwd_by_path"].items()}},
+                             **{f"dense_t5_{k}": n for k, n in dense["fwd_by_path"].items()},
+                             "app": app_fwd, "cli": cli_run["fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in results.values()),
         "ms": bench["ms"], "plain_ms": bench["plain_ms"], "bound_ms": bench["bound_ms"],
         "bound_by": bench["bound_by"], "bound_ms_f32": bench["bound_ms_f32"],
@@ -2565,7 +2855,7 @@ def main() -> int:
         "replaces": "genrec_tpu/ops/t5_attention.py:129",
         "launches": train["bwd"] + prefix["bwd"] + dense["bwd"],
         "launches_by_path": {"serve": 0, "train": train["bwd"], "tiger_prefix": prefix["bwd"],
-                             "dense_t5_train": dense["bwd"]},
+                             "dense_t5_train": dense["bwd"], "app": 0, "cli": 0},
         "max_abs_err": max(r["max_abs_err"] for r in bwd.values()),
         "max_rel_err": max(r["max_rel_err"] for r in bwd.values()),
         "ms": dec["ms"], "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
@@ -2606,7 +2896,8 @@ def main() -> int:
         "replaces": "genrec_tpu/ops/t5_attention.py:157 (the dbias sum of _bwd_kernel)",
         "launches": train["reduce"] + prefix["reduce"] + dense["reduce"],
         "launches_by_path": {"serve": 0, "train": train["reduce"],
-                             "tiger_prefix": prefix["reduce"], "dense_t5_train": dense["reduce"]},
+                             "tiger_prefix": prefix["reduce"], "dense_t5_train": dense["reduce"],
+                             "app": 0, "cli": 0},
         "max_abs_err": reduce["max_abs_err"], "ms": reduce["ms"], "plain_ms": reduce["plain_ms"],
         "bound_ms": reduce["bound_ms"], "bound_by": reduce["bound_by"],
         "library_ms": reduce["library_ms"], "device_ms": reduce["device_ms"],
@@ -2628,7 +2919,12 @@ def main() -> int:
           f"{dense['examples_s']:.1f} train examples/s, {dense['ms_step']:.2f} ms/train step, "
           f"device {dense['device_ms']} ms/step, busy share {dense['busy']}, "
           f"{dense['req_s']:.2f} requests/s, Recall@10 {dense['metrics']['Recall@10']:.4f}; "
-          f"script {time.perf_counter() - t_start:.1f} s")
+          + "; ".join(f"app {k}: {v['http_req_s']:.2f} requests/s over HTTP against "
+                      f"{v['direct_req_s']:.2f} direct, HTTP minus direct p10/p50/p90 "
+                      f"{_fmt(v['gap_ms_p10_50_90'])} ms, device {v['device_ms']} ms a request, "
+                      f"busy share {v['busy']}" for k, v in app.items())
+          + f"; cli serve up in {cli_run['up_s']:.1f} s"
+          f"; script {time.perf_counter() - t_start:.1f} s")
     kernels = [fwd_record, bwd_record, reduce_record] + flash_records(flash, flash_build,
                                                                       lc_serve, lc_train)
     print(json.dumps({"kernels": kernels}))

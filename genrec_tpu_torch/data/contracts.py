@@ -1,5 +1,4 @@
-"""File contracts of the port: copies of ``genrec_tpu/data/contracts.py``'s
-code file, item embedding, interaction, TIGER-split and prof_lvl parts.
+"""File contracts of the port: a copy of ``genrec_tpu/data/contracts.py``.
 
 - ``course_rqvae_codes.npy`` holds an (N_items + 1, L + 1) int table: row i
   is dense item i (row 0 is padding), L RQ levels plus a collision-
@@ -16,11 +15,14 @@ code file, item embedding, interaction, TIGER-split and prof_lvl parts.
   (N, 5, 768) f32, the top-5 major vectors of each user at one level.
 - ``tiger/{train,test}_dataset.h5``: ``user_id`` int32, ``history`` /
   ``target`` vlen int32 of flattened offset tokens
-  (`RQVAE-T5/data_vision.py:8-11`). h5py is imported only by the functions
-  that read or write it, so the rest of the port runs without it.
+  (`RQVAE-T5/data_vision.py:8-11`).
+- ``course_info.h5`` / ``course_id_map.h5`` / ``user_id_map.h5``: course
+  text fields and original-id ↔ dense-id maps (`T5/data_vision.py:70-84`).
+- ``recommendation_data.h5``: groups ``classes/``, ``interactions/``,
+  ``students/`` (`Baseline/data_process.py:39-105`).
 
-The other file contracts of the reference come with the slices that read
-them.
+h5py is imported only by the functions that read or write it, so the rest
+of the port runs without it.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -54,6 +56,11 @@ def _ensure_parent(path: str) -> None:
     parent = os.path.dirname(os.path.abspath(path))
     if parent:
         os.makedirs(parent, exist_ok=True)
+
+
+def _decode(arr) -> List[str]:
+    """An H5 string array as Python strings."""
+    return [s.decode("utf-8") if isinstance(s, bytes) else str(s) for s in arr]
 
 
 def write_item_embs(path: str, item_embs: np.ndarray,
@@ -140,13 +147,26 @@ class InteractionData:
         return mx
 
 
+def write_interactions(path: str, data: InteractionData) -> None:
+    import h5py
+
+    _ensure_parent(path)
+    with h5py.File(path, "w") as f:
+        f.create_dataset("user_id", data=np.asarray(data.user_ids, dtype=np.int32))
+        f.create_dataset("user_profile", data=np.array(data.user_profiles, dtype=object),
+                         dtype=h5py.special_dtype(vlen=str))
+        ds = f.create_dataset("item_id_list", (len(data.item_id_lists),),
+                              dtype=h5py.special_dtype(vlen=np.dtype("int32")))
+        for i, seq in enumerate(data.item_id_lists):
+            ds[i] = np.asarray(seq, dtype=np.int32)
+
+
 def read_interactions(path: str) -> InteractionData:
     import h5py
 
     with h5py.File(path, "r") as f:
         user_ids = f["user_id"][:].astype(np.int32)
-        user_profiles = [s.decode("utf-8") if isinstance(s, bytes) else str(s)
-                         for s in f["user_profile"][:]]
+        user_profiles = _decode(f["user_profile"][:])
         item_lists = [np.asarray(x, dtype=np.int32) for x in f["item_id_list"][:]]
     return InteractionData(user_ids, user_profiles, item_lists)
 
@@ -183,3 +203,80 @@ def read_tiger_split(path: str) -> TigerSplit:
         histories = [np.asarray(x, dtype=np.int32) for x in f["history"][:]]
         targets = [np.asarray(x, dtype=np.int32) for x in f["target"][:]]
     return TigerSplit(user_ids, histories, targets)
+
+
+def write_course_info(path: str, item_ids: Sequence[str], item_names: Sequence[str],
+                      item_infos: Sequence[str]) -> None:
+    import h5py
+
+    _ensure_parent(path)
+    vlen_str = h5py.special_dtype(vlen=str)
+    with h5py.File(path, "w") as f:
+        f.create_dataset("item_id", data=np.array(item_ids, dtype=object), dtype=vlen_str)
+        f.create_dataset("item_name", data=np.array(item_names, dtype=object), dtype=vlen_str)
+        f.create_dataset("item_info", data=np.array(item_infos, dtype=object), dtype=vlen_str)
+
+
+def read_course_info(path: str):
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return _decode(f["item_id"][:]), _decode(f["item_name"][:]), _decode(f["item_info"][:])
+
+
+def write_id_map(path: str, orig_ids: Sequence[str], num_ids: Sequence[int],
+                 key_prefix: str = "item") -> None:
+    """``course_id_map.h5`` / ``user_id_map.h5``: original → dense 1-based id."""
+    import h5py
+
+    _ensure_parent(path)
+    with h5py.File(path, "w") as f:
+        f.create_dataset(f"{key_prefix}_id", data=np.array(orig_ids, dtype=object),
+                         dtype=h5py.special_dtype(vlen=str))
+        f.create_dataset(f"{key_prefix}_num_id", data=np.asarray(num_ids, dtype=np.int64))
+
+
+def read_id_map(path: str, key_prefix: str = "item") -> Dict[str, int]:
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        ids = _decode(f[f"{key_prefix}_id"][:])
+        nums = f[f"{key_prefix}_num_id"][:]
+    return {i: int(n) for i, n in zip(ids, nums)}
+
+
+def write_recommendation_data(path: str, classes: Dict[str, np.ndarray],
+                              interactions: Dict[str, np.ndarray],
+                              students: Dict[str, np.ndarray]) -> None:
+    """``recommendation_data.h5`` (`Baseline/data_process.py:39-105`)."""
+    import h5py
+
+    _ensure_parent(path)
+    with h5py.File(path, "w") as f:
+        for group_name, table in (("classes", classes), ("interactions", interactions),
+                                  ("students", students)):
+            g = f.create_group(group_name)
+            for key, arr in table.items():
+                arr = np.asarray(arr)
+                if arr.dtype.kind in ("U", "O"):
+                    g.create_dataset(key, data=arr.astype(object),
+                                     dtype=h5py.special_dtype(vlen=str))
+                else:
+                    g.create_dataset(key, data=arr)
+
+
+def read_recommendation_data(path: str):
+    import h5py
+
+    out = {}
+    with h5py.File(path, "r") as f:
+        for group_name in ("classes", "interactions", "students"):
+            g = f[group_name]
+            table = {}
+            for key in g:
+                arr = g[key][:]
+                if arr.dtype.kind in ("S", "O"):
+                    arr = np.array(_decode(arr), dtype=object)
+                table[key] = arr
+            out[group_name] = table
+    return out["classes"], out["interactions"], out["students"]

@@ -20,6 +20,25 @@ import numpy as np
 from genrec_tpu_torch.data.contracts import TigerSplit
 
 
+def item_to_offset_code(code: Sequence[int], codebook_size: int = 8) -> np.ndarray:
+    """Map raw per-level codes to the level-disjoint token space.
+
+    ``token(level, code) = level*K + code + 1`` (SURVEY.md §2.6 token space).
+    """
+    code = np.asarray(code, dtype=np.int64)
+    levels = np.arange(code.shape[-1], dtype=np.int64)
+    return (code + levels * codebook_size + 1).astype(np.int32)
+
+
+def offset_code_to_item(tokens: Sequence[int], codebook_size: int = 8) -> np.ndarray:
+    """Inverse of :func:`item_to_offset_code` (tokens outside range → -1)."""
+    tokens = np.asarray(tokens, dtype=np.int64)
+    levels = np.arange(tokens.shape[-1], dtype=np.int64)
+    raw = tokens - levels * codebook_size - 1
+    valid = (raw >= 0) & (raw < codebook_size)
+    return np.where(valid, raw, -1).astype(np.int32)
+
+
 def codes_to_token_table(codes: np.ndarray, codebook_size: int = 8) -> np.ndarray:
     """Vectorized token mapping of a full (N_items, code_dim) code table."""
     codes = np.asarray(codes, dtype=np.int64)

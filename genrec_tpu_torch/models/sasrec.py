@@ -100,7 +100,11 @@ class SASRec(nn.Module):
 
     def forward(self, log_seqs, generator: Optional[torch.Generator] = None):
         """(B, n) item ids → (B, n, d) sequence features."""
-        x = self.item_emb(log_seqs) + self.pos_emb.weight[:log_seqs.shape[1]][None]
+        return self.encode(self.item_emb(log_seqs), generator)
+
+    def encode(self, emb, generator: Optional[torch.Generator] = None):
+        """(B, n, d) gathered item embeddings → (B, n, d) sequence features."""
+        x = emb + self.pos_emb.weight[:emb.shape[1]][None]
         for blk in self.blocks:
             x = blk(x, generator)
         return self.last_norm(x)

@@ -6,9 +6,9 @@ port's single-device ``Trainer``, with dropout in training and the fused
 attention kernels forward and backward. Every entry point runs on the card
 unless it is given ``device="cpu"``.
 
-Still to port (ROADMAP): length buckets and composite widths
-(``target_len_buckets`` / ``target_len_composite`` > 1 raise), multi-device
-eval.
+Still to port (ROADMAP Queue 1 items 4 and 5): length buckets and
+composite widths (``target_len_buckets`` / ``target_len_composite`` > 1
+raise ``ValueError``), multi-device eval.
 """
 
 from __future__ import annotations
@@ -45,12 +45,22 @@ def loss_fn(model: TIGER, batch, generator: Optional[torch.Generator]):
     return loss, {"sum_loss": loss * n_valid, "valid": n_valid}
 
 
+def _refuse_bucket_modes(cfg: TIGERConfig) -> None:
+    """The reference partitions training by target length on either field
+    (`genrec_tpu/pipelines/tiger_pipeline.py:86-92`); training flat instead
+    would give other batches and losses for the same config."""
+    if cfg.target_len_buckets > 1 or cfg.target_len_composite > 1:
+        raise ValueError(
+            f"target_len_buckets={cfg.target_len_buckets} and target_len_composite="
+            f"{cfg.target_len_composite}: the length-bucket and composite-width modes are "
+            "not ported yet (ROADMAP.md Queue 1 item 5); use 1 and 0")
+
+
 def build_trainer(cfg: TIGERConfig, train_arrays: datasets.TigerArrays,
                   test_arrays: datasets.TigerArrays, device=None) -> Trainer:
     """A TIGER at ``cfg`` with weights drawn from ``cfg.trainer.seed``, and
     its Trainer over the two splits on ``device``."""
-    if cfg.target_len_buckets > 1 or cfg.target_len_composite > 1:
-        raise NotImplementedError("length buckets and composite widths are not ported yet")
+    _refuse_bucket_modes(cfg)
     model = TIGER(cfg, generator=torch.Generator().manual_seed(cfg.trainer.seed))
     return Trainer(cfg.trainer, model=model, loss_fn=loss_fn, train_data=train_arrays.arrays,
                    val_data=test_arrays.arrays, logger_name="tiger", device=device)
@@ -61,6 +71,7 @@ def train(cfg: TIGERConfig,
           test_arrays: Optional[datasets.TigerArrays] = None,
           device=None) -> TIGERArtifacts:
     device = resolve_device(device)
+    _refuse_bucket_modes(cfg)
     if train_arrays is None:
         train_arrays = datasets.build_tiger_arrays(
             read_tiger_split(cfg.train_dataset_path), cfg.max_len, cfg.code_dim)

@@ -2,8 +2,8 @@
 
 Counterpart of ``genrec_tpu/serving/model_fn.py``'s ``sasrec_model_fn``,
 ``tiger_model_fn`` and ``dense_t5_model_fn``: load the best checkpoint and
-return a plain ``fn(history_ids, top_k) -> [item_id]``. The route table
-comes with a later slice.
+return a plain ``fn(history_ids, top_k) -> [item_id]``, which
+``cli.make_context`` wires to ``/api/v1/recommend/model``.
 """
 
 from __future__ import annotations

@@ -200,3 +200,31 @@ def test_dense_t5_entry_points_default_to_the_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         model_fn.dense_t5_model_fn(ckpt, h5, cfg)
     assert len(model_fn.dense_t5_model_fn(ckpt, h5, cfg, device="cpu")([1], 2)) == 2
+
+
+def test_cli_defaults_to_the_card(monkeypatch, tmp_path):
+    """``tiger`` and ``serve --tiger-ckpt`` without ``--device`` raise on a
+    host without a card, before they train or listen."""
+    from genrec_tpu_torch import cli
+    from genrec_tpu_torch.backend import server
+    from genrec_tpu_torch.serving import model_fn as served
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    started = []
+    monkeypatch.setattr(tiger_pipeline, "main", lambda *a, **k: started.append("train"))
+    monkeypatch.setattr(tiger_pipeline, "train", lambda *a, **k: started.append("train"))
+    monkeypatch.setattr(server, "serve", lambda *a, **k: started.append("listen"))
+    monkeypatch.setattr(server.BackendHTTPServer, "__init__",
+                        lambda *a, **k: started.append("listen"))
+    monkeypatch.setattr(served, "tiger_model_fn", lambda *a, **k: started.append("load"))
+    codes = tmp_path / "data" / "course" / "course_rqvae_codes.npy"
+    codes.parent.mkdir(parents=True)
+    np.save(codes, np.zeros((3, 4), np.int64))
+    for argv in (["tiger", "--data-dir", str(tmp_path / "data"), "--epochs", "1",
+                  "--ckpt-dir", str(tmp_path / "ckpt")],
+                 ["serve", "--data-dir", str(tmp_path / "data"), "--port", "0",
+                  "--db", str(tmp_path / "app.db"), "--tiger-ckpt", str(tmp_path / "ckpt")]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(argv)
+    assert started == [] and not (tmp_path / "ckpt").exists()
+    assert not (tmp_path / "app.db").exists()
