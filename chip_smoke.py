@@ -80,15 +80,30 @@ which asserts; any failure exits non-zero and prints no result:
     dropped as JAX drops them, HTTP and direct requests/s, device ms and
     busy share a request; ``make_sasrec_recommend_fn`` on an id past its
     table answers JAX's pinned list;
-12. ``[cli]``: ``init-db``, ``view-db`` and ``serve --tiger-ckpt`` through
+12. ``[dist]``, right after 6: the distributed layer over an NCCL group of
+    one rank (the card is alone, and NCCL refuses two ranks on one card),
+    joined through a ``file://`` rendezvous in the temporary directory, on
+    the 1 × 1 mesh: TIGER at ``TIGERConfig()`` under DDP, one step against
+    the single-device Trainer's step (loss and every gradient within the
+    backward's bound, the largest difference printed; 6 + 6 launches of #1
+    and #2 in each), one epoch of ``tiger_pipeline.train`` under the group
+    whose loss equals the first epoch of 6, a profiled step of each;
+    ``SASRecLargeConfig()``'s 10,000,000-row table, f32 and bf16: the psum
+    and all_to_all lookups equal ``F.embedding`` exactly and are timed,
+    ``predict_topk`` of both and of ``use_sharded=False`` equals a chunked
+    top-k (values exact), 3 Adam steps at batch 4,096 through each give
+    ``use_sharded=False``'s losses, with the peak memory and a profiled
+    step; ring attention at M = 1 against the plain attention; the group
+    is destroyed;
+13. ``[cli]``: ``init-db``, ``view-db`` and ``serve --tiger-ckpt`` through
     ``cli``, in process and as a ``python3 -m genrec_tpu_torch.cli serve``
     subprocess answering the same lists (the card's machine has no h5py, so
     ``synth`` and the training subcommands, whose files are H5, are held by
     the CPU tests);
-13. print one JSON line of kernel records, the card line, and last the
+14. print one JSON line of kernel records, the card line, and last the
     ``{"ok": true, "device": ...}`` line.
 
-Kernel launch counts are set to 0 just before each of the paths 5-12 and
+Kernel launch counts are set to 0 just before each of the paths 5-13 and
 read just after, and must equal what the path ran.
 
 TF32 is off for matmuls and cuDNN throughout, so f32 means f32.
@@ -2124,7 +2139,264 @@ def phase_train(tmp, tr, te, codes):
     print(f"[train] peak device memory over the profiled steps: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return dict(fwd=fwd, bwd=bwd, reduce=reduce, examples_s=res.steady_examples_per_sec,
-                ms_step=ms_step, busy=busy)
+                ms_step=ms_step, busy=busy, train_losses=res.train_losses)
+
+
+DIST_TOPK_B = 64       # [dist]: histories scored by predict_topk over the 10M-row table
+DIST_STEPS = 3         # [dist]: train steps of each 10M-row run
+RING_SHAPE = (8, 4, LC_L, 16)  # [dist]: ring attention at M = 1, (B, H, L, D)
+
+
+def _grads_of(trainer):
+    return {k: p.grad.detach().clone() for k, p in trainer.model.named_parameters()}
+
+
+def _dist_tiger(tmp, tr, te, train):
+    """TIGER at ``TIGERConfig()`` under DDP over the one-rank NCCL group: one
+    step against the single-device Trainer's on the same batch and generator
+    (loss and every gradient; launches of #1 and #2 equal), one epoch of
+    ``tiger_pipeline.train`` under the group (the counted path), whose loss
+    must equal the first epoch of ``[train]``'s, and one profiled step of
+    each."""
+    from genrec_tpu_torch.configs import TIGERConfig
+    from genrec_tpu_torch.data.datasets import num_batches
+    from genrec_tpu_torch.ops import t5_attention as ta
+    from genrec_tpu_torch.parallel.auto import dp_shardings
+    from genrec_tpu_torch.pipelines import tiger_pipeline
+
+    base = TIGERConfig(constrained_decoding="trie")
+    cfg = dataclasses.replace(base, trainer=dataclasses.replace(
+        base.trainer, epochs=1, batch_size=BATCH, eval_batch_size=BATCH,
+        ckpt_dir=os.path.join(tmp, "dist_ckpt"), seed=0))
+    single = tiger_pipeline.build_trainer(cfg, tr, te, device="cuda")
+    again = tiger_pipeline.build_trainer(cfg, tr, te, device="cuda")
+    dp = tiger_pipeline.build_trainer(cfg, tr, te, device="cuda", mesh=dp_shardings(cfg.mesh))
+    assert isinstance(dp._ddp, torch.nn.parallel.DistributedDataParallel)
+    step = {}
+    for name, trainer in (("single", single), ("again", again), ("dp", dp)):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        batch = trainer.gather(trainer.train_data, torch.arange(BATCH, device="cuda"))
+        ta.launches = ta.bwd_launches = ta.dbias_reduce_launches = 0
+        sl, vl = trainer.train_step(batch, gen)
+        torch.cuda.synchronize()
+        step[name] = (sl.item() / vl.item(), _grads_of(trainer),
+                      (ta.launches, ta.bwd_launches, ta.dbias_reduce_launches), batch, gen)
+    (l1, g1, n1, b1, gen1), (l2, g2, n2, b2, gen2) = step["single"], step["dp"]
+    worst, bitwise = {}, {}
+    for other in ("dp", "again"):  # "again": the card's own spread between two equal steps
+        lo, go = step[other][0], step[other][1]
+        worst[other], bitwise[other] = (0.0, ""), lo == l1
+        for k, g in g1.items():
+            err, scale = (go[k] - g).abs().max().item(), g.abs().max().item()
+            bitwise[other] = bitwise[other] and torch.equal(go[k], g)
+            assert err <= BWD_REL * scale + TOL, f"{k}: {other} grad vs single {err} (max {scale})"
+            worst[other] = max(worst[other], (err, k))
+        assert abs(l1 - lo) <= 1e-6 * abs(l1), (other, l1, lo)
+    assert n1 == n2 == step["again"][2] == (6, 6, 4), (n1, n2)
+    print(f"[dist] TIGER B={BATCH} dropout {cfg.arch.dropout_rate}, DDP over NCCL at world size "
+          f"1 against the single-device step (same batch, generator and weights): loss "
+          f"{l2:.7f} vs {l1:.7f}, {len(g1)} gradients, largest |diff| {worst['dp'][0]:.3e} "
+          f"({worst['dp'][1]}), bit-identical: {bitwise['dp']}; a second single-device step "
+          f"against the first: largest |diff| {worst['again'][0]:.3e} ({worst['again'][1]}), "
+          f"bit-identical: {bitwise['again']}; launches #1/#2/reduce {n2} a step, as "
+          f"single-device {n1}")
+
+    # ---- the [dist] TIGER path: counts at 0 just before, read just after ----
+    ta.launches = ta.bwd_launches = ta.dbias_reduce_launches = 0
+    art = tiger_pipeline.train(cfg, tr, te, device="cuda")
+    torch.cuda.synchronize()
+    fwd, bwd, reduce = ta.launches, ta.bwd_launches, ta.dbias_reduce_launches
+    # ---- end ----
+    steps, val_batches = art.result.steps_run, num_batches(len(te.input_ids), BATCH)
+    assert steps == num_batches(len(tr.input_ids), BATCH), steps
+    assert (fwd, bwd, reduce) == (6 * steps + 6 * val_batches, 6 * steps, 4 * steps), (
+        fwd, bwd, reduce)
+    loss, want = art.result.train_losses[0], train["train_losses"][0]
+    assert abs(loss - want) <= 1e-5 * abs(want), (loss, want)
+    print(f"[dist] tiger_pipeline.train under the group, 1 epoch ({steps} DDP steps): train loss "
+          f"{loss:.7f} against [train]'s first epoch {want:.7f} (|diff| {abs(loss - want):.2e}); "
+          f"launches #1 {fwd}, #2 {bwd}, reduce {reduce}")
+    prof = {}
+    for name, trainer, batch, gen in (("single", single, b1, gen1), ("dp", dp, b2, gen2)):
+        prof[name] = profile_window(f"[dist] one TIGER train step, {name}",
+                                    lambda: trainer.train_step(batch, gen), top_n=4)
+    line = "; ".join(f"{k} {v[0] / 1e3:.3f} ms device of {v[1] / 1e3:.3f} ms host "
+                     f"({100 * v[0] / v[1]:.1f}% busy)" for k, v in prof.items() if v)
+    print(f"[dist] TIGER train step (profiler, 3 steps after a warm-up): {line}")
+    return dict(fwd=fwd, bwd=bwd, reduce=reduce, max_grad_diff=worst["dp"][0], prof=prof)
+
+
+def _chunked_topk_reference(h, table, k):
+    """Top-k of h @ table.T by chunks of TOPK_CHUNK_ROWS rows upcast to f32,
+    merged at the end: the (B, V) logits never exist whole."""
+    from genrec_tpu_torch.models.sasrec_large import TOPK_CHUNK_ROWS
+
+    vals, ids = [], []
+    for lo in range(0, table.shape[0], TOPK_CHUNK_ROWS):
+        v, i = torch.topk(h.float() @ table[lo:lo + TOPK_CHUNK_ROWS].float().T, k, dim=-1)
+        vals.append(v)
+        ids.append(i + lo)
+    v, j = torch.topk(torch.cat(vals, 1), k, dim=-1)
+    return v, torch.gather(torch.cat(ids, 1), 1, j)
+
+
+def _dist_sasrec_large(mesh, dtype):
+    """``SASRecLargeConfig()`` (10,000,000 rows, d 64, 2 blocks, batch 4,096,
+    64 negatives, dropout 0.2) with its table in ``dtype`` on the 1 × 1 mesh:
+    the psum and all_to_all lookups against ``F.embedding`` (exact) and
+    timed; ``predict_topk`` of both lookups and of ``use_sharded=False``
+    against a chunked top-k (values exact); then DIST_STEPS Adam steps from
+    the same weights and generator through each, whose losses must be
+    ``use_sharded=False``'s; peak memory and a profiled step."""
+    from torch.nn import functional as F
+
+    from genrec_tpu_torch.configs import SASRecLargeConfig, ShardedEmbeddingConfig
+    from genrec_tpu_torch.models.sasrec_large import SASRecLarge, make_train_step
+    from genrec_tpu_torch.ops.embedding import alltoall_embedding_lookup, sharded_embedding_lookup
+
+    base = SASRecLargeConfig()
+    cfg = dataclasses.replace(base, embedding=dataclasses.replace(base.embedding, dtype=dtype))
+    assert isinstance(cfg.embedding, ShardedEmbeddingConfig) and cfg.embedding.vocab_size == 10**7
+    item_num, bsz = cfg.embedding.vocab_size - 1, cfg.trainer.batch_size
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.device("cuda"):
+        model = SASRecLarge(item_num, cfg, mesh=mesh, lookup_impl="psum",
+                            generator=torch.Generator(device="cuda").manual_seed(0))
+    table = model.item_table
+    assert table.dtype == getattr(torch, dtype) and table.shape == (10**7, 64)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(21)
+    x = rng.integers(1, item_num + 1, size=(bsz, cfg.max_len + 1))
+    x[: bsz // 4, : cfg.max_len // 2] = 0  # a quarter of the rows left-padded
+    inputs = torch.from_numpy(x[:, :-1]).cuda()
+    targets = torch.from_numpy(np.where(x[:, :-1] == 0, 0, x[:, 1:])).cuda()
+
+    with torch.no_grad():
+        plain = F.embedding(inputs, table)
+        e_psum = sharded_embedding_lookup(table, inputs, mesh)
+        e_a2a, ok = alltoall_embedding_lookup(table, inputs, mesh, capacity_factor=2.0)
+        assert torch.equal(e_psum, plain) and torch.equal(e_a2a, plain) and bool(ok.all())
+        look_ms = {"F.embedding": cuda_ms(lambda: F.embedding(inputs, table), 50),
+                   "psum": cuda_ms(lambda: sharded_embedding_lookup(table, inputs, mesh), 50),
+                   "alltoall": cuda_ms(lambda: alltoall_embedding_lookup(
+                       table, inputs, mesh, capacity_factor=2.0), 50)}
+
+    model.eval()
+    hist = inputs[:DIST_TOPK_B]
+    with torch.no_grad():
+        h_t = model(hist)[:, -1, :].contiguous()
+        want_v, want_i = _chunked_topk_reference(h_t, table, TOP_K)
+        topk = {}
+        for impl, sharded in (("psum", True), ("alltoall", True), ("replicated", False)):
+            model.lookup_impl, model.use_sharded = ("psum" if impl == "replicated" else impl,
+                                                    sharded)
+            v, i = model.predict_topk(hist, TOP_K)
+            assert torch.equal(v, want_v), f"{dtype} {impl}: top-{TOP_K} values differ"
+            clear = torch.ones_like(want_i, dtype=torch.bool)
+            gap = (want_v[:, 1:] - want_v[:, :-1]).abs() > 0
+            clear[:, 1:] &= gap
+            clear[:, :-1] &= gap
+            assert torch.equal(i[clear], want_i[clear]), f"{dtype} {impl}: top-{TOP_K} ids"
+            topk[impl] = cuda_ms(lambda: model.predict_topk(hist, TOP_K), 3, windows=3)
+
+    runs = {}
+    for impl, sharded in (("replicated", False), ("psum", True), ("alltoall", True)):
+        model.load_state_dict(init)
+        model.lookup_impl, model.use_sharded = ("psum" if impl == "replicated" else impl, sharded)
+        opt = torch.optim.Adam(model.parameters(), lr=cfg.trainer.lr, betas=(0.9, 0.999),
+                               eps=1e-8)
+        step = make_train_step(model, opt, cfg, item_num)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [step(inputs, targets, gen) for _ in range(DIST_STEPS)]
+        torch.cuda.synchronize()
+        runs[impl] = ([v.item() for v in losses], (time.perf_counter() - t0) / DIST_STEPS * 1e3)
+        if impl == "psum":
+            prof = profile_window(f"[dist] one SASRecLargeConfig() step, {dtype} table, psum",
+                                  lambda: step(inputs, targets, gen), top_n=6)
+        del opt, step
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+    # psum reads and differentiates as F.embedding does: the same losses; all_to_all
+    # sums a row's gradient in bucket order, which moves the later steps' losses
+    want = runs["replicated"][0]
+    rel = {"psum": 1e-6, "alltoall": 1e-5 if dtype == "float32" else 1e-3}
+    for impl, tol in rel.items():
+        got = runs[impl][0]
+        assert all(abs(a - b) <= tol * abs(b) for a, b in zip(got, want)), (impl, got, want)
+    assert all(np.isfinite(want))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    busy = ("" if prof is None else f"; device {prof[0] / 1e3:.3f} ms of {prof[1] / 1e3:.3f} ms "
+            f"host a psum step ({100 * prof[0] / prof[1]:.1f}% busy)")
+    print(f"[dist] SASRecLargeConfig() {dtype} table (10,000,000 x 64) on the 1 x 1 mesh: "
+          f"psum and all_to_all lookups of ({bsz}, {cfg.max_len}) ids equal F.embedding exactly; "
+          f"lookup ms " + ", ".join(f"{k} {v:.4f}" for k, v in look_ms.items())
+          + f"; predict_topk at B={DIST_TOPK_B} equal to the chunked top-{TOP_K} (values exact), "
+          f"ms " + ", ".join(f"{k} {v:.2f}" for k, v in topk.items()))
+    print(f"[dist] SASRecLargeConfig() {dtype}: {DIST_STEPS} Adam steps at B={bsz}, dropout "
+          f"{cfg.dropout}, the same generator: losses " + "; ".join(
+              f"{k} {[round(v, 6) for v in r[0]]} ({r[1]:.2f} ms/step host)"
+              for k, r in runs.items())
+          + busy + f"; peak device memory {peak:.2f} GiB")
+    del model, init, table, plain, e_psum, e_a2a
+    torch.cuda.empty_cache()
+    return dict(look_ms=look_ms, topk_ms=topk, runs=runs, peak_gib=peak, prof=prof)
+
+
+def _dist_ring(mesh):
+    """Ring attention at M = 1 over the 'model' axis against the plain
+    attention (``_xla_attention``), out and q/k/v gradients, causal."""
+    from genrec_tpu_torch.ops.attention import _xla_attention
+    from genrec_tpu_torch.ops.ring_attention import ring_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, w = (torch.randn(RING_SHAPE, generator=gen, device="cuda") for _ in range(4))
+    outs = []
+    for fn in (lambda a, b, c: ring_attention(a, b, c, mesh, axis_name="model", causal=True),
+               lambda a, b, c: _xla_attention(a, b, c, None, True)):
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+        out = fn(qs, ks, vs)
+        (out * w).sum().backward()
+        outs.append([out.detach()] + [t.grad for t in (qs, ks, vs)])
+    errs = [(a - b).abs().max().item() for a, b in zip(*outs)]
+    assert errs[0] <= TOL, f"ring out vs plain {errs[0]}"
+    for name, err, ref in zip("qkv", errs[1:], outs[1][1:]):
+        assert err <= BWD_REL * ref.abs().max().item() + TOL, f"ring d{name} {err}"
+    print(f"[dist] ring attention at M=1, (B, H, L, D) {RING_SHAPE} causal, against the plain "
+          f"attention: out max |diff| {errs[0]:.2e}, dq/dk/dv {errs[1]:.2e}/{errs[2]:.2e}/"
+          f"{errs[3]:.2e}")
+    return errs
+
+
+def phase_dist(tmp, tr, te, train):
+    """``[dist]``: the distributed layer over an NCCL group of one rank (the
+    card is alone; NCCL refuses two ranks on one card): the group through a
+    ``file://`` rendezvous, the 1 × 1 mesh; TIGER under DDP
+    (:func:`_dist_tiger`); ``SASRecLargeConfig()``'s 10,000,000-row sharded
+    table in f32 and bf16 (:func:`_dist_sasrec_large`); ring attention at
+    M = 1 (:func:`_dist_ring`). The group is destroyed at the end, so that
+    the later phases run on one device without one."""
+    import torch.distributed as dist
+
+    from genrec_tpu_torch.configs import MeshConfig
+    from genrec_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+
+    t0 = time.perf_counter()
+    dev = initialize_multihost("file://" + os.path.join(tmp, "dist_rendezvous"), 1, 0)
+    try:
+        assert dist.get_backend() == "nccl" and dev == torch.device("cuda", 0), dev
+        mesh = make_mesh(MeshConfig(data_axis=1, model_axis=1))
+        out = {"tiger": _dist_tiger(tmp, tr, te, train)}
+        for dtype in ("float32", "bfloat16"):
+            out[dtype] = _dist_sasrec_large(mesh, dtype)
+        out["ring"] = _dist_ring(mesh)
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[dist] phase {out['seconds']:.1f} s")
+    return out
 
 
 def _greedy_margins(model, embs):
@@ -2783,6 +3055,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         launches, req_s, seqs_s = phase_serving(tmp)
         train = phase_train(tmp, tr, te, codes)
+        dist_run = phase_dist(tmp, tr, te, train)
         rq_codes, rqvae = phase_rqvae(tmp)
         prefix = phase_tiger_prefix(tmp, *prefix_corpus(rq_codes))
         corpus, items, users = dense_corpus()
@@ -2794,6 +3067,7 @@ def main() -> int:
         cli_run = phase_cli(tmp, codes)
         lc_train = phase_sasrec_large_train()
     assert launches > 0 and train["fwd"] > 0 and train["bwd"] > 0
+    assert dist_run["tiger"]["fwd"] > 0 and dist_run["tiger"]["bwd"] > 0
     assert prefix["fwd"] > 0 and prefix["bwd"] > 0 and prefix["reduce"] > 0
     assert dense["fwd"] > 0 and dense["bwd"] > 0 and dense["reduce"] > 0
     app_fwd = app["tiger"]["launches"] + app["dense_t5"]["launches"]
@@ -2807,8 +3081,9 @@ def main() -> int:
         "source": "genrec_tpu_torch/csrc/t5_attention_fwd.cu",
         "replaces": "genrec_tpu/ops/t5_attention.py:115",
         "launches": (launches + train["fwd"] + prefix["fwd"] + dense["fwd"] + app_fwd
-                     + cli_run["fwd"]),
+                     + cli_run["fwd"] + dist_run["tiger"]["fwd"]),
         "launches_by_path": {"serve": launches, "train": train["fwd"],
+                             "dist": dist_run["tiger"]["fwd"],
                              "tiger_prefix": prefix["fwd"],
                              **{f"dense_t5_{k}": n for k, n in dense["fwd_by_path"].items()},
                              "app": app_fwd, "cli": cli_run["fwd"]},
@@ -2853,9 +3128,10 @@ def main() -> int:
         "name": "t5_attention_bwd", "route": "cuda",
         "source": "genrec_tpu_torch/csrc/t5_attention_bwd.cu",
         "replaces": "genrec_tpu/ops/t5_attention.py:129",
-        "launches": train["bwd"] + prefix["bwd"] + dense["bwd"],
+        "launches": train["bwd"] + prefix["bwd"] + dense["bwd"] + dist_run["tiger"]["bwd"],
         "launches_by_path": {"serve": 0, "train": train["bwd"], "tiger_prefix": prefix["bwd"],
-                             "dense_t5_train": dense["bwd"], "app": 0, "cli": 0},
+                             "dense_t5_train": dense["bwd"], "app": 0, "cli": 0,
+                             "dist": dist_run["tiger"]["bwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in bwd.values()),
         "max_rel_err": max(r["max_rel_err"] for r in bwd.values()),
         "ms": dec["ms"], "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
@@ -2883,7 +3159,8 @@ def main() -> int:
            for m in ("ms", "device_ms", "bound_ms", "library_ms", "library_device_ms")},
         "dbias_reduce_launches_by_path": {"train": train["reduce"],
                                           "tiger_prefix": prefix["reduce"],
-                                          "dense_t5_train": dense["reduce"]},
+                                          "dense_t5_train": dense["reduce"],
+                                          "dist": dist_run["tiger"]["reduce"]},
         **{f"dense_train_{m}": bwd["dense_train"][m]
            for m in ("ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms", "bound_ms_f32",
                      "max_rel_err", "smem_bytes", "blocks_per_sm")},
@@ -2894,10 +3171,11 @@ def main() -> int:
         "name": "t5_attention_dbias_reduce", "route": "cuda",
         "source": "genrec_tpu_torch/csrc/t5_attention_bwd.cu",
         "replaces": "genrec_tpu/ops/t5_attention.py:157 (the dbias sum of _bwd_kernel)",
-        "launches": train["reduce"] + prefix["reduce"] + dense["reduce"],
+        "launches": (train["reduce"] + prefix["reduce"] + dense["reduce"]
+                     + dist_run["tiger"]["reduce"]),
         "launches_by_path": {"serve": 0, "train": train["reduce"],
                              "tiger_prefix": prefix["reduce"], "dense_t5_train": dense["reduce"],
-                             "app": 0, "cli": 0},
+                             "app": 0, "cli": 0, "dist": dist_run["tiger"]["reduce"]},
         "max_abs_err": reduce["max_abs_err"], "ms": reduce["ms"], "plain_ms": reduce["plain_ms"],
         "bound_ms": reduce["bound_ms"], "bound_by": reduce["bound_by"],
         "library_ms": reduce["library_ms"], "device_ms": reduce["device_ms"],
@@ -2924,6 +3202,10 @@ def main() -> int:
                       f"{_fmt(v['gap_ms_p10_50_90'])} ms, device {v['device_ms']} ms a request, "
                       f"busy share {v['busy']}" for k, v in app.items())
           + f"; cli serve up in {cli_run['up_s']:.1f} s"
+          + "; dist: SASRecLargeConfig() step " + ", ".join(
+              f"{k} {dist_run[k]['runs']['psum'][1]:.2f} ms host, peak "
+              f"{dist_run[k]['peak_gib']:.2f} GiB" for k in ("float32", "bfloat16"))
+          + f", phase {dist_run['seconds']:.1f} s"
           f"; script {time.perf_counter() - t_start:.1f} s")
     kernels = [fwd_record, bwd_record, reduce_record] + flash_records(flash, flash_build,
                                                                       lc_serve, lc_train)

@@ -17,7 +17,10 @@ attention forward and backward (``ops/t5_attention.py``), and the SASRec
 family on one device (``pipelines/sasrec_pipeline.py``, ``sasrec_model_fn``,
 the long-context ``models/sasrec_large.py``) with the flash attention forward
 and backward (``ops/attention.py``) as its kernels; RQ-VAE, TIGER-prefix and
-DenseT5; and the app that serves them: the CLI (``cli.py``, run as
+DenseT5; the app that serves them: the CLI (``cli.py``, run as
 ``python -m genrec_tpu_torch.cli``), the backend (``backend/``) and the
-serving surface (``serving/``).
+serving surface (``serving/``); and the distributed layer on
+``torch.distributed`` (``parallel/``, ``ops/embedding.py``,
+``ops/ring_attention.py``): the five pipelines train data-parallel under
+a process group, and ``SASRecLarge``'s table is row-sharded.
 """

@@ -38,11 +38,11 @@ class MeshConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
-    """Shared trainer knobs (``train/trainer.py``). The port's single-device
-    trainer does not read ``bucket_interleave_chunks``, ``profile_dir``,
-    ``shard_dataset``, ``composite_mix``, ``param_dtype`` or
-    ``compute_dtype`` yet; they are kept so TIGERConfig compares with the
-    reference."""
+    """Shared trainer knobs (``train/trainer.py``). The port's trainer does
+    not read ``bucket_interleave_chunks``, ``profile_dir``, ``composite_mix``,
+    ``param_dtype`` or ``compute_dtype`` yet; they are kept so TIGERConfig
+    compares with the reference. ``shard_dataset`` (None: on with more than
+    one rank) splits the datasets' rows over the mesh's 'data' axis."""
 
     batch_size: int = 128
     eval_batch_size: int = 128
@@ -255,9 +255,9 @@ class SASRecConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ShardedEmbeddingConfig:
-    """The item table of ``SASRecLarge``: (vocab_size, dim) rows. The port
-    runs it on one device in float32 only (``models/sasrec_large.py``); the
-    sharded lookups and the bf16 table are ROADMAP Queue 1 item 4."""
+    """The item table of ``SASRecLarge``: (vocab_size, dim) rows in
+    ``dtype`` (float32 or bfloat16), row-sharded over the mesh's 'model'
+    axis (``models/sasrec_large.py``, ``ops/embedding.py``)."""
 
     vocab_size: int = 10_000_000
     dim: int = 64

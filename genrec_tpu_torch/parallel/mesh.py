@@ -1,0 +1,165 @@
+"""Process groups and the ('data', 'model') mesh of the port.
+
+Counterpart of ``genrec_tpu/parallel/mesh.py`` on ``torch.distributed``: one
+process per GPU (NCCL), or per CPU rank (gloo) when the caller asks for the
+CPU. A rank is one device, so where JAX speaks of a process's devices the
+port speaks of the rank itself.
+
+Rank ``r`` sits at ``(r // model, r % model)``, the row-major layout of
+JAX's ``np.asarray(devices).reshape(data, model)``: the ranks of one data
+row share a data index and hold the same batch rows; the ranks of one
+column share a model index and hold the same table shard.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from genrec_tpu_torch.configs import MeshConfig
+from genrec_tpu_torch.device import resolve_device
+
+
+class Mesh:
+    """This rank's view of a (data, model) mesh: each axis's size, this
+    rank's index along it, and the process group of the ranks that differ
+    from this one along that axis only. Built by :func:`make_mesh`; a mesh
+    built without a process group is 1 × 1 and its groups are ``None``, so
+    every collective over it is the identity."""
+
+    def __init__(self, names: Tuple[str, str], shape: Tuple[int, int],
+                 coordinate: Tuple[int, int], groups: Tuple[Optional[object], Optional[object]]):
+        self.names = tuple(names)
+        self.shape: Dict[str, int] = dict(zip(names, shape))
+        self._index = dict(zip(names, coordinate))
+        self._groups = dict(zip(names, groups))
+
+    def size(self, axis: Optional[str]) -> int:
+        """The axis's size; 1 for an axis the mesh does not have (or None)."""
+        return self.shape.get(axis, 1)
+
+    def index(self, axis: Optional[str]) -> int:
+        """This rank's index along ``axis``; 0 for an axis the mesh lacks."""
+        return self._index.get(axis, 0)
+
+    def group(self, axis: Optional[str]):
+        """The group along ``axis``; None without a process group, or for an
+        axis the mesh does not have."""
+        return self._groups.get(axis)
+
+    def group_over(self, axes: Sequence[Optional[str]]):
+        """The group of the ranks that differ from this one along ``axes``
+        only: the world for both axes, one axis's group for one, None for
+        none (or without a process group)."""
+        axes = {a for a in axes if a in self.shape}
+        if not axes or self._groups[self.names[0]] is None:
+            return None
+        if len(axes) == 2:
+            return dist.group.WORLD
+        return self._groups[axes.pop()]
+
+
+def initialize_multihost(init_method: Optional[str] = None, world_size: Optional[int] = None,
+                         rank: Optional[int] = None, *, device=None) -> torch.device:
+    """Join this process to a group of ``world_size`` ranks at ``init_method``
+    (``tcp://host:port`` or ``file:///path``) and return the device it runs
+    on: NCCL and ``cuda:<rank % cards>`` unless ``device="cpu"``, which takes
+    gloo. Without ``world_size`` it is a no-op (one process, no group) and
+    returns ``resolve_device(device)``. A failed NCCL start raises; it is
+    never retried on gloo."""
+    dev = resolve_device(device)
+    if world_size is None:
+        return dev
+    if dev.type != "cuda":
+        dist.init_process_group("gloo", init_method=init_method, world_size=world_size,
+                                rank=rank)
+        return dev
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=init_method, world_size=world_size, rank=rank,
+                            device_id=dev)
+    return dev
+
+
+def make_mesh(cfg: Optional[MeshConfig] = None) -> Mesh:
+    """Build the (data, model) mesh over every rank of the process group.
+
+    ``data_axis == -1`` takes all remaining ranks; the axis sizes must
+    multiply to the world size. Without a process group the world is one
+    rank and the mesh 1 × 1 with no groups. Every rank must call this, in
+    the same order as its other group creations: it makes one group per
+    row and per column (``dist.new_group`` is collective)."""
+    cfg = cfg or MeshConfig()
+    live = dist.is_available() and dist.is_initialized()
+    n = dist.get_world_size() if live else 1
+    model = cfg.model_axis if cfg.model_axis > 0 else 1
+    data = cfg.data_axis if cfg.data_axis > 0 else n // model
+    assert data * model == n, f"mesh {data}x{model} != {n} devices"
+    if not live:
+        return Mesh(cfg.axis_names, (data, model), (0, 0), (None, None))
+    rank = dist.get_rank()
+    grid = np.arange(n).reshape(data, model)
+    d, m = divmod(rank, model)
+    data_group = model_group = None
+    for j in range(model):  # the columns: ranks of one model index, along 'data'
+        g = dist.new_group(grid[:, j].tolist())
+        data_group = g if j == m else data_group
+    for i in range(data):   # the rows: ranks of one data index, along 'model'
+        g = dist.new_group(grid[i].tolist())
+        model_group = g if i == d else model_group
+    return Mesh(cfg.axis_names, (data, model), (d, m), (data_group, model_group))
+
+
+def process_rows(mesh: Mesh, n_rows: int) -> Tuple[int, int]:
+    """[start, stop) of the leading-axis rows this rank holds when ``n_rows``
+    are split over 'data' in contiguous blocks of ceil(n_rows / size) (the
+    last block shorter): which rows a per-rank loader should read."""
+    per = -(-n_rows // mesh.size("data"))
+    lo = min(mesh.index("data") * per, n_rows)
+    return lo, min(lo + per, n_rows)
+
+
+def make_global_array(x, mesh: Mesh, *, process_local: bool = False,
+                      device=None) -> torch.Tensor:
+    """This rank's rows of a leading-axis-sharded array, on ``device``.
+
+    ``process_local=False``: ``x`` is the host-global array and the rank
+    takes its :func:`process_rows` slice. ``process_local=True``: ``x`` is
+    already this rank's slice, read by a per-rank loader, and goes to the
+    device as it is. The port holds no global array object: a rank's
+    tensor is its shard."""
+    if not process_local:
+        lo, hi = process_rows(mesh, len(x))
+        x = x[lo:hi]
+    return torch.as_tensor(np.asarray(x)).to(resolve_device(device))
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Σ of ``x`` over ``group``, outside autograd; ``x`` itself for None."""
+    if group is None:
+        return x
+    x = x.detach().clone()
+    dist.all_reduce(x, group=group)
+    return x
+
+
+def is_main_process() -> bool:
+    """Rank 0, or a process without a group: the one writer of files on a
+    shared filesystem."""
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
+def write_once(write: Callable[[], object]) -> None:
+    """``write()`` on the main process only; then every rank meets, so that
+    a read after this call sees the file."""
+    if is_main_process():
+        write()
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+
+
+# the mesh of a model built without one: 1 × 1, no groups
+ONE_BY_ONE = Mesh(MeshConfig().axis_names, (1, 1), (0, 0), (None, None))

@@ -24,6 +24,8 @@ from genrec_tpu_torch.data.contracts import read_interactions, read_item_embs, r
 from genrec_tpu_torch.device import resolve_device
 from genrec_tpu_torch.models.dense_t5 import DenseT5, contrastive_loss
 from genrec_tpu_torch.ops.metrics_ops import hit_ndcg_from_ranks
+from genrec_tpu_torch.parallel.auto import dp_shardings
+from genrec_tpu_torch.parallel.mesh import write_once
 from genrec_tpu_torch.train.trainer import Trainer, TrainLoopResult
 from genrec_tpu_torch.utils.csv_results import append_results_csv
 
@@ -83,6 +85,7 @@ def make_loss_fn(cfg: DenseT5Config, item_embs: torch.Tensor, user_embs: torch.T
 def train(cfg: DenseT5Config, data=None, item_embs: Optional[np.ndarray] = None,
           user_embs: Optional[np.ndarray] = None, device=None) -> DenseT5Artifacts:
     device = resolve_device(device)
+    mesh = dp_shardings(cfg.mesh)
     if data is None:
         data = read_interactions(cfg.rec_path)
     items, users = _tables(cfg, item_embs, user_embs, device)
@@ -90,7 +93,7 @@ def train(cfg: DenseT5Config, data=None, item_embs: Optional[np.ndarray] = None,
     te = datasets.build_dense_t5_arrays(data, cfg.max_seq_len, "test")
     trainer = Trainer(cfg.trainer, model=build_model(cfg),
                       loss_fn=make_loss_fn(cfg, items, users), train_data=tr.arrays,
-                      val_data=te.arrays, logger_name="dense_t5", device=device)
+                      val_data=te.arrays, logger_name="dense_t5", device=device, mesh=mesh)
     result = trainer.fit()
     return DenseT5Artifacts(params=result.best_params, result=result)
 
@@ -138,7 +141,7 @@ def evaluate(cfg: DenseT5Config, artifacts: DenseT5Artifacts, data=None,
                "num_layers": a.num_layers, "dropout_rate": a.dropout_rate,
                "temperature": cfg.temperature, "lr": cfg.trainer.lr,
                "batch_size": cfg.trainer.batch_size, **metrics}
-        append_results_csv(cfg.trainer.results_csv_path, row)
+        write_once(lambda: append_results_csv(cfg.trainer.results_csv_path, row))
     return metrics
 
 

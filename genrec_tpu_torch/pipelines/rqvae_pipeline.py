@@ -30,6 +30,8 @@ from genrec_tpu_torch.configs import RQVAEConfig
 from genrec_tpu_torch.data.contracts import read_item_embs, write_codes
 from genrec_tpu_torch.device import resolve_device
 from genrec_tpu_torch.models.rqvae import RQVAE, collision_rate, kmeans_init_codebooks
+from genrec_tpu_torch.parallel.auto import dp_shardings
+from genrec_tpu_torch.parallel.mesh import write_once
 from genrec_tpu_torch.train.trainer import Trainer, TrainLoopResult
 from genrec_tpu_torch.utils.misc import get_logger
 
@@ -88,7 +90,7 @@ def train(cfg: RQVAEConfig, item_embs: Optional[np.ndarray] = None,
     embs = np.asarray(item_embs, dtype=np.float32)
     model = build_model(cfg, embs, device)
     trainer = Trainer(cfg.trainer, model=model, loss_fn=loss_fn, train_data={"x": embs},
-                      logger_name="rqvae", device=device)
+                      logger_name="rqvae", device=device, mesh=dp_shardings(cfg.mesh))
 
     best_collision = {"rate": float("inf"), "params": trainer.snapshot_params()}
 
@@ -101,7 +103,8 @@ def train(cfg: RQVAEConfig, item_embs: Optional[np.ndarray] = None,
         if rate < best_collision["rate"]:
             best_collision["rate"] = rate
             best_collision["params"] = tr.snapshot_params()
-            tr.store.save_best(best_collision["params"], tag="best_collision")
+            write_once(lambda: tr.store.save_best(best_collision["params"],
+                                                  tag="best_collision"))
 
     result = trainer.fit(epoch_end_callback=on_epoch_end)
     if not np.isfinite(best_collision["rate"]):
@@ -169,7 +172,7 @@ def infer(cfg: RQVAEConfig, artifacts: RQVAEArtifacts,
     rate = collision_rate(codes)
     logger.info(f"Final collision rate before dedup digit: {rate:.4f}")
     if write:
-        write_codes(cfg.semantic_id_file, full)
+        write_once(lambda: write_codes(cfg.semantic_id_file, full))
     return full
 
 

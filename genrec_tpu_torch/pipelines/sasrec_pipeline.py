@@ -20,6 +20,8 @@ from genrec_tpu_torch.data.contracts import InteractionData, read_interactions
 from genrec_tpu_torch.device import resolve_device
 from genrec_tpu_torch.eval.evaluator import rank_evaluate
 from genrec_tpu_torch.models.sasrec import SASRec, eval_loss, train_loss
+from genrec_tpu_torch.parallel.auto import dp_shardings, param_shardings
+from genrec_tpu_torch.parallel.mesh import write_once
 from genrec_tpu_torch.train.trainer import Trainer, TrainLoopResult
 from genrec_tpu_torch.utils.csv_results import append_results_csv
 
@@ -51,6 +53,8 @@ def make_loss_fns(cfg: SASRecConfig, item_num: int):
 def train(cfg: SASRecConfig, data: Optional[InteractionData] = None,
           device=None) -> SASRecArtifacts:
     device = resolve_device(device)
+    mesh = dp_shardings(cfg.mesh)
+    param_shardings(mesh)
     if data is None:
         data = read_interactions(cfg.data_path)
     tr = datasets.build_sasrec_arrays(data, cfg.max_len, "train", cfg.min_seq_len)
@@ -60,7 +64,7 @@ def train(cfg: SASRecConfig, data: Optional[InteractionData] = None,
     loss_fn, val_fn = make_loss_fns(cfg, item_num)
     trainer = Trainer(cfg.trainer, model=model, loss_fn=loss_fn, eval_loss_fn=val_fn,
                       train_data=tr.arrays, val_data=te.arrays, logger_name="sasrec",
-                      device=device)
+                      device=device, mesh=mesh)
     result = trainer.fit()
     return SASRecArtifacts(params=result.best_params, item_num=item_num, result=result)
 
@@ -87,7 +91,7 @@ def evaluate(cfg: SASRecConfig, artifacts: SASRecArtifacts,
                "lr": cfg.trainer.lr, "batch_size": cfg.trainer.batch_size,
                "epochs": cfg.trainer.epochs, "mlp_layer": cfg.mlp_layer,
                "max_len": cfg.max_len, "top_k": cfg.top_k, **metrics}
-        append_results_csv(cfg.trainer.results_csv_path, row)
+        write_once(lambda: append_results_csv(cfg.trainer.results_csv_path, row))
     return metrics
 
 

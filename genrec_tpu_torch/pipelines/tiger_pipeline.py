@@ -6,9 +6,14 @@ port's single-device ``Trainer``, with dropout in training and the fused
 attention kernels forward and backward. Every entry point runs on the card
 unless it is given ``device="cpu"``.
 
-Still to port (ROADMAP Queue 1 items 4 and 5): length buckets and
-composite widths (``target_len_buckets`` / ``target_len_composite`` > 1
-raise ``ValueError``), multi-device eval.
+Under a process group ``train`` runs data-parallel over ``cfg.mesh``
+(``parallel.auto.dp_shardings``), each rank's share of the batch through
+kernels #1 and #2; a model axis > 1 (tensor parallelism) raises. Every
+rank evaluates the whole test split; rank 0 writes the results CSV.
+
+Still to port (ROADMAP Queue 1 items 4b and 5): tensor parallelism, length
+buckets and composite widths (``target_len_buckets`` /
+``target_len_composite`` > 1 raise ``ValueError``), multi-device eval.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from genrec_tpu_torch.data.contracts import read_codes, read_tiger_split
 from genrec_tpu_torch.device import resolve_device
 from genrec_tpu_torch.models.tiger import TIGER, generate, make_constraint
 from genrec_tpu_torch.ops.metrics_ops import beam_metrics, pos_index_exact_match
+from genrec_tpu_torch.parallel.auto import dp_shardings, param_shardings
+from genrec_tpu_torch.parallel.mesh import Mesh, write_once
 from genrec_tpu_torch.train.trainer import Trainer, TrainLoopResult
 from genrec_tpu_torch.utils.csv_results import append_results_csv
 
@@ -57,13 +64,15 @@ def _refuse_bucket_modes(cfg: TIGERConfig) -> None:
 
 
 def build_trainer(cfg: TIGERConfig, train_arrays: datasets.TigerArrays,
-                  test_arrays: datasets.TigerArrays, device=None) -> Trainer:
+                  test_arrays: datasets.TigerArrays, device=None,
+                  mesh: Optional[Mesh] = None) -> Trainer:
     """A TIGER at ``cfg`` with weights drawn from ``cfg.trainer.seed``, and
-    its Trainer over the two splits on ``device``."""
+    its Trainer over the two splits on ``device``, data-parallel over
+    ``mesh`` when given."""
     _refuse_bucket_modes(cfg)
     model = TIGER(cfg, generator=torch.Generator().manual_seed(cfg.trainer.seed))
     return Trainer(cfg.trainer, model=model, loss_fn=loss_fn, train_data=train_arrays.arrays,
-                   val_data=test_arrays.arrays, logger_name="tiger", device=device)
+                   val_data=test_arrays.arrays, logger_name="tiger", device=device, mesh=mesh)
 
 
 def train(cfg: TIGERConfig,
@@ -72,6 +81,8 @@ def train(cfg: TIGERConfig,
           device=None) -> TIGERArtifacts:
     device = resolve_device(device)
     _refuse_bucket_modes(cfg)
+    mesh = dp_shardings(cfg.mesh)
+    param_shardings(mesh)
     if train_arrays is None:
         train_arrays = datasets.build_tiger_arrays(
             read_tiger_split(cfg.train_dataset_path), cfg.max_len, cfg.code_dim)
@@ -79,7 +90,7 @@ def train(cfg: TIGERConfig,
         test_arrays = datasets.build_tiger_arrays(
             read_tiger_split(cfg.test_dataset_path), cfg.max_len, cfg.code_dim,
             max_target_items=1)
-    result = build_trainer(cfg, train_arrays, test_arrays, device).fit()
+    result = build_trainer(cfg, train_arrays, test_arrays, device, mesh).fit()
     return TIGERArtifacts(params=result.best_params, result=result)
 
 
@@ -146,7 +157,7 @@ def evaluate(cfg: TIGERConfig, artifacts: TIGERArtifacts,
                "dropout_rate": a.dropout_rate, "lr": cfg.trainer.lr,
                "batch_size": cfg.trainer.batch_size, "beam_size": cfg.beam_size,
                "constrained": cfg.constrained_decoding, **metrics}
-        append_results_csv(cfg.trainer.results_csv_path, row)
+        write_once(lambda: append_results_csv(cfg.trainer.results_csv_path, row))
     return metrics
 
 

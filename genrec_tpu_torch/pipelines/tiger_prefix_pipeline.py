@@ -27,6 +27,8 @@ from genrec_tpu_torch.eval.evaluator import beam_evaluate
 from genrec_tpu_torch.models import tiger as tiger_mod
 from genrec_tpu_torch.models.tiger_prefix import TIGERPrefix, generate
 from genrec_tpu_torch.ops.beam_search import ConstraintSpec
+from genrec_tpu_torch.parallel.auto import dp_shardings
+from genrec_tpu_torch.parallel.mesh import write_once
 from genrec_tpu_torch.train.trainer import Trainer, TrainLoopResult
 from genrec_tpu_torch.utils.csv_results import append_results_csv
 
@@ -81,13 +83,14 @@ def train(cfg: TIGERPrefixConfig, train_data: Optional[Dict[str, np.ndarray]] = 
           test_data: Optional[Dict[str, np.ndarray]] = None,
           device=None) -> TIGERPrefixArtifacts:
     device = resolve_device(device)
+    mesh = dp_shardings(cfg.mesh)
     if train_data is None:
         train_data = _split(cfg, cfg.train_dataset_path, test=False)
     if test_data is None:
         test_data = _split(cfg, cfg.test_dataset_path, test=True)
     trainer = Trainer(cfg.trainer, model=build_model(cfg), loss_fn=loss_fn,
                       train_data=train_data, val_data=test_data, logger_name="tiger_prefix",
-                      device=device)
+                      device=device, mesh=mesh)
     result = trainer.fit()
     return TIGERPrefixArtifacts(params=result.best_params, result=result)
 
@@ -125,7 +128,7 @@ def evaluate(cfg: TIGERPrefixConfig, artifacts: TIGERPrefixArtifacts,
                "lr": cfg.trainer.lr, "batch_size": cfg.trainer.batch_size,
                "beam_size": cfg.beam_size, "constrained": cfg.constrained_decoding,
                **metrics}
-        append_results_csv(cfg.trainer.results_csv_path, row)
+        write_once(lambda: append_results_csv(cfg.trainer.results_csv_path, row))
     return metrics
 
 

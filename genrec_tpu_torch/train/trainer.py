@@ -1,7 +1,7 @@
-"""The port's single-device Trainer.
+"""The port's Trainer.
 
 Counterpart of ``genrec_tpu/train/trainer.py``'s ``Trainer`` on its
-single-device, device-resident path:
+device-resident path, on one device or data-parallel over a mesh:
 
 - the datasets are uploaded to the device once; each epoch's shuffled index
   matrix is built as the reference's ``_index_matrix`` builds it, seeded
@@ -18,9 +18,32 @@ single-device, device-resident path:
   abort on a non-finite loss, and an ``epoch_end_callback(epoch, trainer)``
   after each epoch's latest-state save.
 
-Still to port (ROADMAP Queue 1 items 4 and 5): sharded and multi-process
-datasets, length buckets, composite widths and ``profile_dir``. The
-reference's batch-factory ``fit`` is left out until a caller needs it.
+Data-parallel (a ``mesh`` from ``parallel.auto.dp_shardings``), with the
+reference's semantics:
+
+- replicated datasets: every rank holds the full arrays, builds the same
+  global index matrix and takes its data index's columns
+  ``[d·B/D, (d+1)·B/D)``, JAX's ``P('data')`` rows;
+- sharded datasets (``cfg.shard_dataset``, on by default with more than one
+  rank): each rank uploads only its data index's block of rows, and the
+  batches come from the reference's ``_index_matrix_sharded``, so N ranks
+  step the batches of a JAX run on an N-device data axis;
+- each step's loss is scaled by local valid · D / global valid before the
+  backward, so that DDP's mean over the 'data' group is the gradient of the
+  global batch's sum / valid, as JAX computes it (DDP alone would average
+  per-rank means); ranks of one data row hold the same batch and tower, so
+  gradients are reduced over the 'data' group only;
+- dropout draws from a generator seeded from (``cfg.seed``, data index):
+  ranks of one data row draw alike, and data index 0 draws the
+  single-device stream;
+- rank 0 alone writes checkpoints, ``best.pt`` and plots, then every rank
+  meets at a barrier; resume reads on every rank, and checkpoints hold the
+  bare model's names (no ``module.``);
+- validation: each rank scores its columns and the sums are all-reduced.
+
+Still to port (ROADMAP Queue 1 item 5): length buckets, composite widths
+and ``profile_dir``. The reference's batch-factory ``fit`` is left out until
+a caller needs it.
 """
 
 from __future__ import annotations
@@ -31,10 +54,12 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from genrec_tpu_torch.configs import TrainerConfig
 from genrec_tpu_torch.device import resolve_device
+from genrec_tpu_torch.parallel.mesh import Mesh, all_reduce_sum, is_main_process, write_once
 from genrec_tpu_torch.train.checkpoint import CheckpointStore
 from genrec_tpu_torch.train.optim import make_optimizer
 from genrec_tpu_torch.utils.misc import get_logger
@@ -65,23 +90,52 @@ class TrainLoopResult:
     steps_run: int = 0  # optimizer steps taken by this fit()
 
 
+class _LossModule(nn.Module):
+    """The model and its loss as one module, so that DDP's forward runs the
+    whole loss (which may call any of the model's methods)."""
+
+    def __init__(self, model: nn.Module, loss_fn: LossFn):
+        super().__init__()
+        self.model = model
+        self.loss_fn = loss_fn
+
+    def forward(self, batch: Batch, generator: Optional[torch.Generator]):
+        return self.loss_fn(self.model, batch, generator)
+
+
 class Trainer:
     def __init__(self, cfg: TrainerConfig, *, model: nn.Module, loss_fn: LossFn,
                  train_data: Dict[str, np.ndarray],
                  val_data: Optional[Dict[str, np.ndarray]] = None,
                  logger_name: str = "genrec", device=None,
-                 eval_loss_fn: Optional[LossFn] = None):
+                 eval_loss_fn: Optional[LossFn] = None, mesh: Optional[Mesh] = None):
         """``train_data`` / ``val_data``: numpy arrays with one row per
         sample, uploaded to ``device`` once (the card unless ``device="cpu"``)
-        and kept there as ``self.train_data`` / ``self.val_data``. ``model``
-        is moved there; the trainer updates it in place. ``loss_fn`` serves
-        training (model in ``.train()``) and, unless ``eval_loss_fn`` is
-        given, validation (``.eval()``)."""
+        and kept there as ``self.train_data`` / ``self.val_data`` (in
+        sharded-dataset mode, this rank's rows only). ``model`` is moved
+        there; the trainer updates it in place. ``loss_fn`` serves training
+        (model in ``.train()``) and, unless ``eval_loss_fn`` is given,
+        validation (``.eval()``). ``mesh`` (``dp_shardings``) makes the run
+        data-parallel over its 'data' axis; every rank passes the same
+        arrays."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.loss_fn = loss_fn
         self.eval_loss_fn = eval_loss_fn or loss_fn
+        world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+        self._shard_data = cfg.shard_dataset if cfg.shard_dataset is not None else world > 1
+        if mesh is None and (world > 1 or self._shard_data):
+            raise ValueError("multi-process training and sharded datasets need a mesh "
+                             "(parallel.auto.dp_shardings)")
+        self.mesh = mesh
+        self._data_axis = mesh.size("data") if mesh is not None else 1
+        self._data_index = mesh.index("data") if mesh is not None else 0
+        self._group = mesh.group("data") if mesh is not None else None
+        d = self._data_axis
+        if cfg.batch_size % d or cfg.eval_batch_size % d:
+            raise ValueError(f"batch sizes ({cfg.batch_size}/{cfg.eval_batch_size}) must "
+                             f"divide the data axis ({d}): padded batches shard evenly")
         n_train = len(next(iter(train_data.values())))
         self.opt = make_optimizer(self.model.parameters(), cfg,
                                   -(-n_train // cfg.batch_size))  # steps per epoch
@@ -90,13 +144,33 @@ class Trainer:
         self.best_val = float("inf")
         self.logger = get_logger(logger_name, cfg.log_path)
         self.store = CheckpointStore(cfg.ckpt_dir, keep=cfg.keep_checkpoints)
-        self.train_data = self._upload(train_data)
-        self.val_data = self._upload(val_data) if val_data is not None else None
+        self.train_data, self._train_meta = self._upload(train_data)
+        self.val_data, self._val_meta = (self._upload(val_data) if val_data is not None
+                                         else (None, None))
         if cfg.resume:
             self._try_resume()
+        # DDP over the 'data' group; None without a process group
+        self._ddp = None if self._group is None else nn.parallel.DistributedDataParallel(
+            _LossModule(self.model, self.loss_fn), process_group=self._group)
 
-    def _upload(self, data: Dict[str, np.ndarray]) -> Batch:
-        return {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in data.items()}
+    def _upload(self, data: Dict[str, np.ndarray]):
+        """The arrays on the device, and the dataset's (real rows, rows per
+        data shard), None when replicated. Sharded: the rows are padded with
+        zeros to a multiple of the data axis and this rank keeps its block."""
+        if not self._shard_data:
+            return {k: torch.as_tensor(np.asarray(v)).to(self.device)
+                    for k, v in data.items()}, None
+        n_real = len(next(iter(data.values())))
+        n_loc = -(-n_real // self._data_axis)
+        lo = self._data_index * n_loc
+        out = {}
+        for k, v in data.items():
+            v = np.asarray(v)
+            block = np.zeros((n_loc,) + v.shape[1:], v.dtype)
+            part = v[lo:lo + n_loc]
+            block[:len(part)] = part
+            out[k] = torch.as_tensor(block).to(self.device)
+        return out, (n_real, n_loc)
 
     def snapshot_params(self) -> Dict[str, torch.Tensor]:
         """A copy of the model's state_dict that later steps leave as it is."""
@@ -135,6 +209,28 @@ class Trainer:
         return out.reshape(steps, batch_size)
 
     @staticmethod
+    def _index_matrix_sharded(n_real: int, n_loc: int, d_axis: int, batch_size: int, *,
+                              shuffle: bool, seed: int) -> np.ndarray:
+        """The reference's index matrix for the row-sharded layout, to the
+        letter: batch columns [d·B/D, (d+1)·B/D) carry only row ids resident
+        on data shard d (rows [d·n_loc, (d+1)·n_loc)); each shard shuffles
+        its rows with its own seed. It depends only on (n_real, n_loc, D, B,
+        seed)."""
+        bloc = batch_size // d_axis
+        # shard d's real rows: the pad-to-multiple-of-D tail lies in the last shards
+        reals = [min(max(n_real - d * n_loc, 0), n_loc) for d in range(d_axis)]
+        steps = max(1, -(-max(reals) // bloc))
+        out = np.full((steps, batch_size), -1, np.int32)
+        for d in range(d_axis):
+            ids = np.arange(reals[d], dtype=np.int32)
+            if shuffle:
+                np.random.default_rng(seed * 9973 + d).shuffle(ids)
+            stream = np.full((steps * bloc,), -1, np.int32)
+            stream[:reals[d]] = ids + d * n_loc
+            out[:, d * bloc:(d + 1) * bloc] = stream.reshape(steps, bloc)
+        return out
+
+    @staticmethod
     def gather(data: Batch, idx: torch.Tensor) -> Batch:
         """The batch of rows ``idx`` (a device index vector; -1 pads): every
         array's rows, and ``valid`` = idx ≥ 0."""
@@ -143,16 +239,32 @@ class Trainer:
         batch["valid"] = idx >= 0
         return batch
 
-    def _indices(self, data: Batch, batch_size: int, *, shuffle: bool, seed: int):
-        """The index matrix, on the host and on the device."""
-        n = len(next(iter(data.values())))
-        mat = self._index_matrix(n, batch_size, shuffle=shuffle, seed=seed)
-        return mat, torch.from_numpy(mat).to(self.device, torch.int64)
+    def _indices(self, data: Batch, meta, batch_size: int, *, shuffle: bool, seed: int):
+        """The global index matrix on the host, and this rank's columns of it
+        on the device, as indices into its own rows (-1 pads)."""
+        if meta is None:
+            mat = self._index_matrix(len(next(iter(data.values()))), batch_size,
+                                     shuffle=shuffle, seed=seed)
+        else:
+            mat = self._index_matrix_sharded(*meta, self._data_axis, batch_size,
+                                             shuffle=shuffle, seed=seed)
+        bloc, d = batch_size // self._data_axis, self._data_index
+        mine = mat[:, d * bloc:(d + 1) * bloc]
+        if meta is not None:
+            mine = np.where(mine >= 0, mine - d * meta[1], -1)
+        return mat, torch.from_numpy(np.ascontiguousarray(mine)).to(self.device, torch.int64)
 
     def train_step(self, batch: Batch, generator: Optional[torch.Generator]):
-        """One update on ``batch``; returns its (sum_loss, valid) on the device."""
+        """One update on ``batch`` (this rank's rows of it); returns its
+        (sum_loss, valid) on the device."""
         self.model.train()
-        loss, aux = self.loss_fn(self.model, batch, generator)
+        if self._ddp is None:
+            loss, aux = self.loss_fn(self.model, batch, generator)
+        else:
+            loss, aux = self._ddp(batch, generator)
+            total = all_reduce_sum(aux["valid"], self._group)
+            local = aux["valid"].detach() * self._data_axis
+            loss = loss * torch.where(total > 0, local / total, torch.zeros_like(total))
         self.opt.zero_grad()
         loss.backward()
         self.opt.step()
@@ -164,15 +276,15 @@ class Trainer:
         """Per-valid-sample mean validation loss (SASRec/train.py:59-81 style),
         summed on the device and read once; ``generator`` goes to the loss."""
         self.model.eval()
-        _, idx_mat = self._indices(self.val_data, self.cfg.eval_batch_size, shuffle=False,
-                                   seed=0)
+        _, idx_mat = self._indices(self.val_data, self._val_meta, self.cfg.eval_batch_size,
+                                   shuffle=False, seed=0)
         total = torch.zeros((), device=self.device)
         valid = torch.zeros((), device=self.device)
         for idx in idx_mat:
             _, aux = self.eval_loss_fn(self.model, self.gather(self.val_data, idx), generator)
             total += aux["sum_loss"]
             valid += aux["valid"]
-        total, valid = float(total), float(valid)
+        total, valid = all_reduce_sum(torch.stack([total, valid]), self._group).tolist()
         return total / valid if valid > 0 else 0.0
 
     # ------------------------------------------------------------------
@@ -182,7 +294,9 @@ class Trainer:
         ``epoch_end_callback(epoch, self)`` after each epoch's latest-state
         save."""
         cfg = self.cfg
-        generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        # ranks of one data row draw alike; data index 0 draws the one-device stream
+        generator = torch.Generator(device=self.device).manual_seed(
+            cfg.seed + (self._data_index << 32))
         train_losses: List[float] = []
         val_losses: List[float] = []
         best_params = self.snapshot_params()
@@ -198,8 +312,8 @@ class Trainer:
         for epoch in range(self.start_epoch, cfg.epochs + 1):
             epochs_run = epoch
             t0 = time.perf_counter()
-            mat, idx_mat = self._indices(self.train_data, cfg.batch_size, shuffle=True,
-                                         seed=cfg.seed + epoch)
+            mat, idx_mat = self._indices(self.train_data, self._train_meta, cfg.batch_size,
+                                         shuffle=True, seed=cfg.seed + epoch)
             sum_loss = torch.zeros((), device=self.device)
             sum_valid = torch.zeros((), device=self.device)
             for idx in idx_mat:
@@ -208,8 +322,9 @@ class Trainer:
                 sum_valid += vl
             steps_run += len(idx_mat)
             n_examples = int((mat >= 0).sum())
-            # the float() reads synchronize: once per epoch
-            sum_loss, sum_valid = float(sum_loss), float(sum_valid)
+            # the reads synchronize: once per epoch
+            sum_loss, sum_valid = all_reduce_sum(torch.stack([sum_loss, sum_valid]),
+                                                 self._group).tolist()
             dt = time.perf_counter() - t0
             phase["train"] += dt
             total_time += dt
@@ -240,7 +355,7 @@ class Trainer:
             self.start_epoch = epoch
             tc = time.perf_counter()
             if (epoch % cfg.ckpt_every_epochs == 0) or epoch == cfg.epochs:
-                self.store.save_latest(self.step, self._state_dict())
+                write_once(lambda: self.store.save_latest(self.step, self._state_dict()))
             phase["ckpt"] += time.perf_counter() - tc
 
             if epoch_end_callback is not None:
@@ -251,7 +366,7 @@ class Trainer:
                 no_improve = 0
                 best_params = self.snapshot_params()
                 tc = time.perf_counter()
-                self.store.save_best(best_params)
+                write_once(lambda: self.store.save_best(best_params))
                 phase["ckpt"] += time.perf_counter() - tc
                 self.logger.info(f"Best model saved (val_loss={val_loss:.4f})")
             else:
@@ -261,10 +376,12 @@ class Trainer:
                     if cfg.ckpt_every_epochs > 1 and epoch % cfg.ckpt_every_epochs != 0:
                         # the cadence skipped this epoch's latest-state save;
                         # persist it so resume starts from the stopping point
-                        self.store.save_latest(self.step, self._state_dict())
+                        write_once(lambda: self.store.save_latest(self.step,
+                                                                  self._state_dict()))
                     break
 
-        plot_loss_curves(train_losses, val_losses, cfg.loss_plot_path)
+        if is_main_process():
+            plot_loss_curves(train_losses, val_losses, cfg.loss_plot_path)
         steady_examples = total_examples - first_epoch_examples
         steady_time = phase["train"] - first_epoch_s
         steady_eps = (steady_examples / steady_time if steady_time > 0

@@ -210,10 +210,15 @@ def test_sasrec_large_scores_and_topk_match_flax(large):
     jv, ji = jm.apply(params, jnp.asarray(x), 5, method=jlarge.SASRecLarge.predict_topk)
     _close(vals, jv)
     np.testing.assert_array_equal(ids.numpy(), np.asarray(ji))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        SASRecLarge(item_num, cfg)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        SASRecLarge(item_num, cfg, use_sharded=False, ctx_axis="ctx")
+    # the default build is the row-sharded table (use_sharded=True), here on
+    # the 1 x 1 mesh: the same top-k as JAX's sharded model on a 1 x 1 mesh
+    sharded = SASRecLarge(item_num, cfg).eval()
+    sharded.load_state_dict(model.state_dict(), strict=True)
+    js = jlarge.SASRecLarge(item_num=item_num, cfg=jm.cfg, mesh=jm.mesh)
+    sv, si = js.apply(params, jnp.asarray(x), 5, method=jlarge.SASRecLarge.predict_topk)
+    vals, ids = sharded.predict_topk(torch.tensor(x), 5)
+    _close(vals, sv)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(si))
 
 
 @pytest.mark.parametrize("force_kernel", [False, True])
