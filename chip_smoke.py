@@ -100,13 +100,32 @@ which asserts; any failure exits non-zero and prints no result:
     subprocess answering the same lists (the card's machine has no h5py, so
     ``synth`` and the training subcommands, whose files are H5, are held by
     the CPU tests);
-14. print one JSON line of kernel records, the card line, and last the
+14. ``[bf16]`` kernels (right after 3): #1 and #2 with bf16 q, k, v and do
+    against their plain bf16 versions at the TIGER, TIGER-prefix and DenseT5
+    train shapes with the f32 dropout mask and without, and the serving
+    shape: out within one bf16 ulp at max|plain|, dq/dk/dv within
+    2^-8·max|plain|, dbias within 1e-4·max + 1e-5, every output at most
+    1.25x as far from the f64 result as the plain bf16 version, two calls
+    bit-identical; times beside bf16 SDPA, bounds at bf16 I/O, shared
+    memory, blocks per SM, ptxas registers;
+15. ``[bf16]`` path (after 9): the T5 stack at ``arch.dtype="bfloat16"`` —
+    a B=16 TIGER step against the CPU's bf16 step, 3 epochs of TIGER
+    training and ``evaluate`` (Recall@10 at least half of 6's f32 figure),
+    ``tiger_model_fn`` requests and a B=256 generate against the CPU, B=16
+    TIGER-prefix and DenseT5 steps against the CPU, a profiled step;
+16. ``[remat]``: a B=256 TIGER step at dropout 0.1 with each of ``remat``,
+    ``attn_remat_dropout`` and ``ffn_remat_dropout`` and with all three,
+    against the plain step from same-seeded CUDA generators (loss and
+    gradients within 1e-6), with each step's peak memory and device ms;
+17. print one JSON line of kernel records, the card line, and last the
     ``{"ok": true, "device": ...}`` line.
 
-Kernel launch counts are set to 0 just before each of the paths 5-13 and
-read just after, and must equal what the path ran.
+Kernel launch counts are set to 0 just before each of the paths 5-13, 15
+and 16 and read just after, and must equal what the path ran.
 
-TF32 is off for matmuls and cuDNN throughout, so f32 means f32.
+TF32 is off for matmuls and cuDNN throughout, so f32 means f32, and a bf16
+GEMM sums in f32 (``allow_bf16_reduced_precision_reduction`` off), as XLA's
+does.
 """
 
 from __future__ import annotations
@@ -115,6 +134,7 @@ import copy
 import dataclasses
 import functools
 import json
+import math
 import os
 import re
 import subprocess
@@ -141,6 +161,7 @@ LOSS_REL = 1e-6     # long-context step loss (~53, a sum of B·L·65 terms), car
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 TF32X3_OPS_PER_S = 495e12 / 3  # H100 SXM dense TF32 tensor cores, three passes a product
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 N_ITEMS = 700
 TOP_K = 10
 BATCH = 256
@@ -276,7 +297,8 @@ def sdpa_inputs(a):
         add = add + torch.where(col > row + (lk - lq), -1e9, 0.0)
     if a["kv_mask"] is not None:
         add = add + ((1.0 - a["kv_mask"].float()) * -1e9)[None, :, None, :]
-    return (qf.view(h, b, lq, d), kf.view(h, b, lk, d), vf.view(h, b, lk, d), add)
+    return (qf.view(h, b, lq, d), kf.view(h, b, lk, d), vf.view(h, b, lk, d),
+            add.to(qf.dtype))  # SDPA takes the mask in q's dtype
 
 
 def _bound(nbytes: int, ops: int) -> tuple:
@@ -311,7 +333,16 @@ def attention_bound_ms(a) -> dict:
              "f32 operations": rest * scores / F32_OPS_PER_S * 1e3}
     by = max(times, key=times.get)
     return {"f32": _bound(nbytes, scores * (4 * d + rest)),
-            "tf32x3": (times[by], "bytes" if by == "bytes" else "operations")}
+            "tf32x3": (times[by], "bytes" if by == "bytes" else "operations"),
+            "bf16": _overlapped(times, 4 * d * scores)}
+
+
+def _overlapped(times: dict, products: int) -> tuple:
+    """(ms, what bounds it) with the products at the bf16 tensor-core rate,
+    the rest of ``times`` as given, the pipes overlapping."""
+    t = dict(times, **{"tensor cores": products / BF16_OPS_PER_S * 1e3})
+    by = max(t, key=t.get)
+    return t[by], "bytes" if by == "bytes" else "operations"
 
 
 FWD_TRAIN = ("enc_train", "dec_self_train", "cross_train")
@@ -559,8 +590,9 @@ def bwd_bound_ms(a) -> dict:
     qf, kf = a["qf"], a["kf"]
     hb, lq, d = qf.shape
     lk = kf.shape[1]
-    nbytes = 2 * sum(x.numel() * 4 for x in (a["qf"], a["kf"], a["vf"]))  # in and grad out
-    nbytes += a["do"].numel() * 4
+    nbytes = 2 * sum(x.numel() * x.element_size()  # in and grad out
+                     for x in (a["qf"], a["kf"], a["vf"]))
+    nbytes += a["do"].numel() * a["do"].element_size()
     for key in ("kv_mask", "dropout_mask"):
         if a[key] is not None:
             nbytes += a[key].numel() * 4
@@ -576,7 +608,8 @@ def bwd_bound_ms(a) -> dict:
              "f32 operations": rest * scores / F32_OPS_PER_S * 1e3}
     by = max(times, key=times.get)
     return {"f32": _bound(nbytes, scores * (10 * d + rest)),
-            "tf32x3": (times[by], "bytes" if by == "bytes" else "operations")}
+            "tf32x3": (times[by], "bytes" if by == "bytes" else "operations"),
+            "bf16": _overlapped(times, 10 * d * scores)}
 
 
 def sdpa_backward(a):
@@ -590,7 +623,7 @@ def sdpa_backward(a):
     leaves = [t.detach().clone().requires_grad_(True) for t in (q4, k4, v4)]
     bias = (a["pos_bias"] if a["pos_bias"] is not None
             else torch.zeros(h, lq, lk, device="cuda"))
-    bias = bias[:, None].detach().clone().requires_grad_(True)
+    bias = bias[:, None].detach().to(q4.dtype).requires_grad_(True)
     add = bias
     if a["causal"]:
         row = torch.arange(lq, device="cuda")[:, None]
@@ -598,6 +631,7 @@ def sdpa_backward(a):
         add = add + torch.where(col > row + (lk - lq), -1e9, 0.0)
     if a["kv_mask"] is not None:
         add = add + ((1.0 - a["kv_mask"].float()) * -1e9)[None, :, None, :]
+    add = add.to(q4.dtype)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     try:
         out = sdpa(*leaves, attn_mask=add, scale=1.0)
@@ -1940,12 +1974,15 @@ def train_corpus():
 
 class _PlainAttention(torch.autograd.Function):
     """Kernels #1 and #2's plain versions as one autograd Function, without
-    the wrapper's f32-only check: they compute in f64 for f64 inputs."""
+    the wrapper's f32/bf16 check: they compute in f64 for f64 inputs. A mask
+    to be drawn again (``redraw``) is drawn and kept."""
 
     @staticmethod
-    def forward(ctx, qf, kf, vf, pos_bias, kv_mask, dmask, h, causal):
+    def forward(ctx, qf, kf, vf, pos_bias, kv_mask, dmask, h, causal, redraw):
         from genrec_tpu_torch.ops import t5_attention as ta
 
+        if redraw is not None:
+            dmask = redraw.draw()
         ctx.save_for_backward(qf, kf, vf, pos_bias, kv_mask, dmask)
         ctx.h, ctx.causal = h, causal
         return ta.t5_attention_reference(qf, kf, vf, h, pos_bias, kv_mask, causal=causal,
@@ -1959,7 +1996,7 @@ class _PlainAttention(torch.autograd.Function):
         grads = ta.t5_attention_bwd_reference(qf, kf, vf, ctx.h, pos_bias, kv_mask,
                                               do.contiguous(), causal=ctx.causal,
                                               dropout_mask=dmask)
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
 def phase_train_step_parity(tr):
@@ -2139,7 +2176,8 @@ def phase_train(tmp, tr, te, codes):
     print(f"[train] peak device memory over the profiled steps: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return dict(fwd=fwd, bwd=bwd, reduce=reduce, examples_s=res.steady_examples_per_sec,
-                ms_step=ms_step, busy=busy, train_losses=res.train_losses)
+                ms_step=ms_step, busy=busy, train_losses=res.train_losses,
+                recall10=metrics["Recall@10"], device_ms=None if prof is None else prof[0] / 1e3)
 
 
 DIST_TOPK_B = 64       # [dist]: histories scored by predict_topk over the 10M-row table
@@ -2949,6 +2987,506 @@ def phase_dense_t5(tmp, corpus, items, users):
                 device_ms=None if prof is None else prof[0] / 1e3, metrics=metrics, req_s=req_s)
 
 
+# ---------------------------------------------------------------------------
+# [bf16]: kernels #1 and #2 at a bf16 compute dtype, and the T5 stack's bf16 path
+# ---------------------------------------------------------------------------
+
+BF16_BWD_REL = 2.0 ** -8   # kernel #2 at bf16: dq, dk, dv within this x max|plain|
+BF16_LOSS_REL, BF16_OUT_REL, BF16_GRAD_REL = 5e-3, 2.0 ** -6, 3e-2  # bf16 steps: card vs CPU,
+# the bounds of tests/test_torch_bf16.py (loss, logits or prediction, each gradient's
+# relative Frobenius error, taken against 1e-3 of the whole gradient's norm at least); a
+# gradient that bf16 rounding alone moves farther from the f64 step than BF16_GRAD_REL / 2
+# on the CPU is held within twice that distance instead: two bf16 steps that round apart
+# lie up to about twice as far from each other as each from f64 (TIGER-prefix's adapters
+# and DenseT5's norms lie 5-6% from f64 on both sides on an H100)
+BF16_GEN_REL, BF16_GEN_MARGIN = 2.0 ** -8, 0.05  # bf16 generate, card vs CPU: scores within
+# BF16_GEN_REL x max|score| (a bf16 rounding of the largest score: the two sides round their
+# bf16 activations after sums taken in other orders, and a flipped rounding moves a
+# log-probability; 1.75e-2 measured at scores near -14 on an H100); top beams equal on rows
+# whose margin over the second beam exceeds BF16_GEN_MARGIN
+# (name, heads, batch, Lq, Lk, keyword arguments of bwd_case): the TIGER, TIGER-prefix and
+# DenseT5 train shapes at batch 256, each with the f32 dropout mask and without, and the
+# serving shape (B = 1, forward only, no mask)
+BF16_CASES = (
+    ("enc_train", 4, BATCH, 80, 80, dict(seed=11)),
+    ("dec_self_train", 4, BATCH, 156, 156, dict(pad=False, causal_in_bias=True, seed=12)),
+    ("cross_train", 4, BATCH, 156, 80, dict(bias=False, seed=13)),
+    ("prefix_enc", 8, BATCH, 83, 83, dict(prefix=3, seed=31)),
+    ("prefix_cross", 8, BATCH, 156, 83, dict(bias=False, prefix=3, seed=32)),
+    ("dense_train", 4, BATCH, DENSE_L, DENSE_L, dict(rate=DENSE_RATE, right_pad=True,
+                                                      seed=41)),
+    ("serve", 4, 1, 80, 80, dict(seed=1)),
+)
+
+
+def bf16_ulp(x: float) -> float:
+    """One bf16 ulp at |x| > 0: 2^(⌊log2 |x|⌋ − 7), bf16 having 8 significant bits."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
+
+
+def _f64(x):
+    return None if x is None else x.double()
+
+
+def phase_bf16_kernels():
+    """``[bf16]`` kernels #1 and #2 with bf16 q, k, v (and do) against their
+    plain versions on the same bf16 inputs on the card, at ``BF16_CASES``:
+    out within one bf16 ulp at max|plain| (the kernel rounds each tile's
+    unnormalised e^(s − m)·dm to bf16 before P·V, the plain version the
+    normalised probability, as the reference does: two rounding points a
+    rounding apart), dq, dk and dv within ``BF16_BWD_REL``·max|plain|, dbias
+    (f32) within ``BWD_REL``·max|plain| + ``TOL``; the distance of out, dq,
+    dk and dv from the f64 result (the same bf16 inputs in f64) at most
+    ``FLASH_F64_RATIO`` times the plain bf16 version's (dbias's is printed:
+    it is the f32 reduction kernel's in-order sum over the batch, unchanged
+    and bit-reproducible, about twice as far from f64 as torch's pairwise
+    sum in the plain version, at 1e-5 of values up to 30); two calls
+    bit-identical. Times (CUDA events and the profiler's device time) of the
+    kernel, the plain version and one bf16 SDPA call (forward, and forward
+    with backward through the bias, where no dropout mask is given), the
+    bounds at bf16 I/O, shared memory, blocks per SM and ptxas registers.
+    Every failure is collected and raised at the end, with all the lines
+    printed."""
+    from genrec_tpu_torch.ops import _build
+    from genrec_tpu_torch.ops import t5_attention as ta
+
+    bf = torch.bfloat16
+    regs = {}
+    for src in ("t5_attention_fwd", "t5_attention_bwd"):
+        log = _build.build_log.get(src)
+        for fn, (n, stores, loads) in (ptxas_report(log[1], f"{src}_bf16_kernel")
+                                       if log else {}).items():
+            print(f"[bf16] ptxas {fn}: {n} registers, {stores} bytes spill stores, {loads} "
+                  f"bytes spill loads")
+            if "ILi2E" in fn:  # the D = 16 build
+                regs[src] = (n, stores + loads)
+    fails, fwd, bwd = [], {}, {}
+    for name, h, b, lq, lk, kw in BF16_CASES:
+        for drop in (False,) if name == "serve" else (True, False):
+            key = name if drop or name == "serve" else f"{name}_no_dropout"
+            _, a = bwd_case(key, h, b, lq, lk, 16, dropout=drop, **kw)
+            for t in ("qf", "kf", "vf", "do"):
+                a[t] = a[t].to(bf)
+            rate = kw.get("rate", 0.1) if drop else 0.0
+            args = (a["qf"], a["kf"], a["vf"], h, a["pos_bias"], a["kv_mask"])
+            fkw = dict(causal=a["causal"], dropout_mask=a["dropout_mask"])
+            kernel = lambda: ta.fused_t5_attention_flat(*args, dropout_rate=rate, **fkw)  # noqa
+            plain = lambda: ta.t5_attention_reference(*args, **fkw)  # noqa: E731
+            out, ref, again = kernel(), plain(), kernel()
+            exact = f64_forward(a)
+            torch.cuda.synchronize()
+            scale = ref.float().abs().max().item()
+            err = (out.float() - ref.float()).abs().max().item()
+            e64, p64 = [(x.double() - exact).abs().max().item() for x in (out, ref)]
+            del exact
+            if out.dtype != bf or not torch.isfinite(out.float()).all():
+                fails.append(f"{key}: kernel #1 out {out.dtype}, finite "
+                             f"{bool(torch.isfinite(out.float()).all())}")
+            if err > bf16_ulp(scale):
+                fails.append(f"{key}: #1 out vs plain {err} > one bf16 ulp at {scale}")
+            if e64 > FLASH_F64_RATIO * p64:
+                fails.append(f"{key}: #1 out {e64} from f64 > {FLASH_F64_RATIO} x plain's {p64}")
+            if not torch.equal(out, again):
+                fails.append(f"{key}: #1 two calls differ")
+            fns = [kernel, plain]
+            if not drop:  # no library call takes a given dropout mask
+                q4, k4, v4, add = sdpa_inputs(a)
+                sdpa = torch.nn.functional.scaled_dot_product_attention
+                fns.append(lambda: sdpa(q4, k4, v4, attn_mask=add, scale=1.0))
+            iters = 200 if name == "serve" else 20
+            ms = [cuda_ms(f, iters) for f in fns] + [None] * (3 - len(fns))
+            dev = [device_ms(f) for f in fns] + [None] * (3 - len(fns))
+            bounds = attention_bound_ms(a)
+            r = fwd[key] = dict(max_abs_err=err, ulp=bf16_ulp(scale), f64_err=e64,
+                                plain_f64_err=p64, ms=ms[0], plain_ms=ms[1], library_ms=ms[2],
+                                device_ms=dev[0], plain_device_ms=dev[1],
+                                library_device_ms=dev[2], bound_ms=bounds["bf16"][0],
+                                bound_by=bounds["bf16"][1], bound_tf32x3_ms=bounds["tf32x3"][0])
+            print(f"[bf16] t5_attention_fwd_bf16 {key} q={tuple(a['qf'].shape)} lk={lk} "
+                  f"dropout={drop}: max_abs_err={err:.3e} (one bf16 ulp at max|plain| "
+                  f"{scale:.3f}: {r['ulp']:.3e}); from f64: kernel {e64:.3e}, plain bf16 "
+                  f"{p64:.3e} | per call (CUDA events): ms={ms[0]:.5f} plain_ms={ms[1]:.5f} "
+                  f"sdpa_bf16_ms={ms[2]} | device only: ms={dev[0]:.5f} plain_ms={dev[1]:.5f} "
+                  f"sdpa_bf16_ms={dev[2]} | bound_ms={r['bound_ms']:.6f} ({r['bound_by']}, "
+                  f"bf16 I/O, products at the bf16 rate), {r['bound_tf32x3_ms']:.6f} with "
+                  f"the products at the 3xTF32 rate the kernel runs them at")
+            if name == "serve":
+                continue
+
+            bargs = args + (a["do"],)
+            kernel = lambda: ta.t5_attention_bwd(*bargs, **fkw)  # noqa: E731
+            plain = lambda: ta.t5_attention_bwd_reference(*bargs, **fkw)  # noqa: E731
+            got, want, again = kernel(), plain(), kernel()
+            exact = ta.t5_attention_bwd_reference(
+                *(_f64(x) for x in args[:3]), h, _f64(a["pos_bias"]), a["kv_mask"],
+                _f64(a["do"]), causal=a["causal"], dropout_mask=_f64(a["dropout_mask"]))
+            torch.cuda.synchronize()
+            errs, rels = {}, []
+            for gname, g, w, x in zip(BWD_GRADS, got, want, exact):
+                if g is None:
+                    continue
+                dt = torch.float32 if gname == "dbias" else bf
+                scale = w.float().abs().max().item()
+                tol = BWD_REL * scale + TOL if gname == "dbias" else BF16_BWD_REL * scale
+                e = (g.float() - w.float()).abs().max().item()
+                e64, p64 = [(y.double() - x).abs().max().item() for y in (g, w)]
+                errs[gname] = (e, tol, e64, p64)
+                rels.append(e / scale)
+                if g.dtype != dt or not torch.isfinite(g).all():
+                    fails.append(f"{key}: #2 {gname} {g.dtype}, want {dt}, finite "
+                                 f"{bool(torch.isfinite(g).all())}")
+                if e > tol:
+                    fails.append(f"{key}: #2 {gname} vs plain {e} > {tol}")
+                if gname != "dbias" and e64 > FLASH_F64_RATIO * p64:
+                    fails.append(f"{key}: #2 {gname} {e64} from f64 > {FLASH_F64_RATIO} x "
+                                 f"plain's {p64}")
+            del exact
+            if not all(g is None or torch.equal(g, y) for g, y in zip(got, again)):
+                fails.append(f"{key}: #2 two calls differ")
+            fns = [kernel, plain]
+            if not drop:
+                lib, why = sdpa_backward(a)
+                if lib is not None:
+                    fns.append(lib)
+                else:
+                    print(f"[bf16] {key}: SDPA backward refused: {why}")
+            ms = [cuda_ms(f, 20) for f in fns] + [None] * (3 - len(fns))
+            dev = [device_ms(f, 10) for f in fns] + [None] * (3 - len(fns))
+            bounds = bwd_bound_ms(a)
+            r = bwd[key] = dict(max_abs_err=max(e[0] for e in errs.values()),
+                                max_rel_err=max(rels), errs=errs, ms=ms[0], plain_ms=ms[1],
+                                library_ms=ms[2], device_ms=dev[0], plain_device_ms=dev[1],
+                                library_device_ms=dev[2], bound_ms=bounds["bf16"][0],
+                                bound_by=bounds["bf16"][1],
+                                bound_tf32x3_ms=bounds["tf32x3"][0])
+            print(f"[bf16] t5_attention_bwd_bf16 {key} dropout={drop}: "
+                  + "; ".join(f"{g} err {e:.3e} (tol {t:.3e}) from f64 kernel {k64:.3e} "
+                              f"plain {p64:.3e}" for g, (e, t, k64, p64) in errs.items())
+                  + f" | per call (CUDA events): ms={ms[0]:.5f} plain_ms={ms[1]:.5f} "
+                  f"sdpa_bf16_ms={ms[2]} | device only: ms={dev[0]:.5f} plain_ms={dev[1]:.5f} "
+                  f"sdpa_bf16_ms={dev[2]} | bound_ms={r['bound_ms']:.6f} ({r['bound_by']}), "
+                  f"{r['bound_tf32x3_ms']:.6f} at the 3xTF32 rate")
+            if drop and name != "serve":
+                smem, per_sm = ta.fwd_occupancy(lq, lk, 16, bf)
+                bsmem, bper_sm = ta.bwd_occupancy(lq, lk, 16, bf)
+                fwd[key].update(smem_bytes=smem, blocks_per_sm=per_sm)
+                bwd[key].update(smem_bytes=bsmem, blocks_per_sm=bper_sm)
+                print(f"[bf16] {key}: #1 {smem} bytes of shared memory a block, {per_sm} blocks "
+                      f"an SM; #2 {bsmem} bytes, {bper_sm} blocks an SM")
+    dec = fwd["dec_self_train"]
+    mb = lambda n: n / 1e6  # noqa: E731
+    hb, lq, d = 4 * BATCH, 156, 16
+    print(f"[bf16] bytes at dec_self_train ({hb}, {lq}, {d}): q, k, v and out "
+          f"{mb(4 * hb * lq * d * 2):.1f} MB in bf16 against {mb(4 * hb * lq * d * 4):.1f} MB in "
+          f"f32; the f32 dropout mask {mb(hb * lq * lq * 4):.1f} MB either way; #1's bound "
+          f"{dec['bound_ms']:.4f} ms with the mask, "
+          f"{fwd['dec_self_train_no_dropout']['bound_ms']:.4f} ms without")
+    assert not fails, "[bf16] kernels:\n" + "\n".join(fails)
+    print(f"[bf16] kernels #1 and #2 in bf16 hold at {len(fwd)} forward and {len(bwd)} backward "
+          f"cases")
+    return fwd, bwd, regs
+
+
+def _rel_frobenius(got, want, floor: float) -> float:
+    return (got - want).norm().item() / max(want.norm().item(), floor)
+
+
+def bf16_step_parity(tag, make, arrays, loss_fn):
+    """One train step at ``STEP_B`` rows and dropout 0 of a bf16-config model
+    (``make("bfloat16")``) on the card against the same step on the CPU
+    (kernels #1 and #2's plain versions), held at the bounds of
+    ``tests/test_torch_bf16.py``: loss, the model's output (logits or
+    prediction) and every gradient. An f64 CPU step of the f32-config model
+    with the same weights (``make("float32")`` in f64, the plain versions in
+    f64) is the exact step; both bf16 steps' distances from it are printed."""
+    from genrec_tpu_torch.ops import t5_attention as ta
+
+    rows = np.arange(STEP_B)
+    out = {}
+    for name, dev, cdt, dtype in (("card", "cuda", "bfloat16", torch.float32),
+                                  ("cpu", "cpu", "bfloat16", torch.float32),
+                                  ("f64", "cpu", "float32", torch.float64)):
+        model = make(cdt).to(dev, dtype)
+        batch = {k: torch.from_numpy(v[rows]).to(dev, dtype if v.dtype.kind == "f" else None)
+                 for k, v in arrays.items()}
+        batch["valid"] = torch.ones(STEP_B, dtype=torch.bool, device=dev)
+        seen = []
+        hook = model.register_forward_hook(
+            lambda m, args, o: seen.append(o[1].detach().double().cpu()))  # returns None
+        fused = ta._FusedT5Attention
+        if dtype == torch.float64:
+            ta._FusedT5Attention = _PlainAttention
+        try:
+            loss, _ = loss_fn(model, batch, None)
+            loss.backward()
+        finally:
+            ta._FusedT5Attention = fused
+            hook.remove()
+        out[name] = (float(loss.detach()), seen[-1],
+                     {k: p.grad.double().cpu() for k, p in model.named_parameters()})
+    fails, dist, per_leaf = [], {}, {}
+    for name, witness in (("card", "cpu"), ("card_f64", "f64"), ("cpu_f64", "f64")):
+        (lg, og, gg), (lw, ow, gw) = out[name.split("_")[0]], out[witness]
+        floor = 1e-3 * torch.stack([w.norm() for w in gw.values()]).norm().item()
+        per_leaf[name] = {k: _rel_frobenius(gg[k], gw[k], floor) for k in gw}
+        worst = max((e, k) for k, e in per_leaf[name].items())
+        dist[name] = (abs(lg - lw) / abs(lw), (og - ow).abs().max().item() / ow.abs().max().item(),
+                      worst)
+    loss_rel, out_rel, (grad_rel, leaf) = dist["card"]
+    if loss_rel > BF16_LOSS_REL:
+        fails.append(f"loss {out['card'][0]} vs CPU {out['cpu'][0]}")
+    if out_rel > BF16_OUT_REL:
+        fails.append(f"output max err / max|CPU| {out_rel}")
+    widened = 0
+    for k, e in per_leaf["card"].items():
+        bound = max(BF16_GRAD_REL, 2 * per_leaf["cpu_f64"][k])
+        widened += bound > BF16_GRAD_REL
+        if e > bound:
+            fails.append(f"gradient {k} relative Frobenius {e} > {bound}")
+    print(f"[{tag}] B={STEP_B} bf16 dropout 0: loss card {out['card'][0]:.6f}, CPU "
+          f"{out['cpu'][0]:.6f}, f64 {out['f64'][0]:.6f}; card vs CPU: loss rel "
+          f"{loss_rel:.2e} (bound {BF16_LOSS_REL}), output max err/max {out_rel:.2e} (bound "
+          f"{BF16_OUT_REL:.2e}), worst gradient rel. Frobenius {grad_rel:.2e} ({leaf}; bound "
+          f"{max(BF16_GRAD_REL, 2 * per_leaf['cpu_f64'][leaf]):.2e}; {widened} of "
+          f"{len(per_leaf['card'])} leaves held at twice the CPU's distance from f64); from the "
+          f"f64 step (printed, not held): card loss "
+          f"{dist['card_f64'][0]:.2e}, output {dist['card_f64'][1]:.2e}, gradient "
+          f"{dist['card_f64'][2][0]:.2e} ({dist['card_f64'][2][1]}); CPU loss "
+          f"{dist['cpu_f64'][0]:.2e}, output {dist['cpu_f64'][1]:.2e}, gradient "
+          f"{dist['cpu_f64'][2][0]:.2e} ({dist['cpu_f64'][2][1]})")
+    assert not fails, f"[{tag}] card vs CPU at bf16: " + "; ".join(fails)
+    return dist
+
+
+def phase_bf16(tmp, tr, te, codes, train, prefix_data, dense_data):
+    """``[bf16]``: the T5 stack at ``arch.dtype="bfloat16"``. (a) a B=16
+    TIGER step on the card against the CPU's bf16 step (:func:`bf16_step_parity`);
+    (b) ``tiger_pipeline.train`` for 3 epochs at batch 256 on ``[train]``'s
+    corpus (a falling loss) and ``evaluate``, whose Recall@10 must reach half
+    of ``[train]``'s f32 figure (a guard against a broken path, not a quality
+    claim); (c) ``tiger_model_fn`` requests from (b)'s checkpoint and a B=256,
+    20-beam ``generate`` held against the CPU's bf16 call on its first rows;
+    (d) one B=16 bf16 step each of ``TIGERPrefixConfig()`` and
+    ``DenseT5Config()`` against the CPU; (e) one profiled bf16 TIGER train
+    step beside ``[train]``'s f32 step. The launch counts are set to 0 before
+    (b) and read after (c): kernels #1 and #2 run in bf16 only, as often as
+    the path ran them."""
+    import dataclasses
+
+    from genrec_tpu_torch.configs import DenseT5Config, TIGERConfig, TIGERPrefixConfig
+    from genrec_tpu_torch.data.contracts import write_codes
+    from genrec_tpu_torch.data.datasets import build_dense_t5_arrays, num_batches
+    from genrec_tpu_torch.data import tiger_tokens
+    from genrec_tpu_torch.models.dense_t5 import DenseT5
+    from genrec_tpu_torch.models.tiger import TIGER, generate, make_constraint
+    from genrec_tpu_torch.models.tiger_prefix import TIGERPrefix
+    from genrec_tpu_torch.ops import t5_attention as ta
+    from genrec_tpu_torch.pipelines import dense_t5_pipeline as dtp
+    from genrec_tpu_torch.pipelines import tiger_pipeline
+    from genrec_tpu_torch.pipelines import tiger_prefix_pipeline as tpp
+    from genrec_tpu_torch.serving.model_fn import tiger_model_fn
+
+    def with_dtype(cfg, dtype, **arch):
+        return dataclasses.replace(cfg, arch=dataclasses.replace(cfg.arch, dtype=dtype, **arch))
+
+    def maker(cls, cfg0):  # the same weights at either compute dtype
+        state = cls(cfg0, generator=torch.Generator().manual_seed(1)).state_dict()
+
+        def make(dtype):
+            model = cls(with_dtype(cfg0, dtype))
+            model.load_state_dict(state)
+            return model.train()
+        return make
+
+    # (a)
+    dist = {"tiger": bf16_step_parity(
+        "bf16-step", maker(TIGER, with_dtype(TIGERConfig(), "float32", dropout_rate=0.0)),
+        tr.arrays, tiger_pipeline.loss_fn)}
+
+    # (b) and (c), the main path: counts at 0 just before, read just after
+    base = with_dtype(TIGERConfig(constrained_decoding="trie"), "bfloat16")
+    cfg = dataclasses.replace(base, trainer=dataclasses.replace(
+        base.trainer, epochs=TRAIN_EPOCHS, batch_size=BATCH, eval_batch_size=BATCH,
+        ckpt_dir=os.path.join(tmp, "bf16_ckpt"), seed=0))
+    codes_path = os.path.join(tmp, "bf16_codes", "course_rqvae_codes.npy")
+    write_codes(codes_path, codes)
+    steps_per_epoch = num_batches(len(tr.input_ids), BATCH)
+    val_batches = num_batches(len(te.input_ids), BATCH)
+    ta.launches = ta.bwd_launches = ta.bf16_launches = ta.bf16_bwd_launches = 0
+    ta.dbias_reduce_launches = 0
+    art = tiger_pipeline.train(cfg, tr, te, device="cuda")
+    metrics = tiger_pipeline.evaluate(cfg, art, te, codes, device="cuda")
+    torch.cuda.synchronize()
+    train_counts = (ta.bf16_launches, ta.bf16_bwd_launches, ta.dbias_reduce_launches)
+    fn = tiger_model_fn(cfg.trainer.ckpt_dir, codes_path, cfg=cfg, device="cuda")
+    rng = np.random.default_rng(5)
+    histories = [[], [int(i) for i in rng.integers(1, N_ITEMS + 1, size=3)],
+                 [int(i) for i in rng.choice(np.arange(1, N_ITEMS + 1), 20, replace=False)]]
+    served = [fn(hist, TOP_K) for hist in histories]
+    model = TIGER(cfg)
+    model.load_state_dict(art.params)
+    model.to("cuda").eval()
+    table = tiger_tokens.codes_to_token_table(codes, cfg.codebook_size)
+    ii, am = _history_batch(rng, BATCH, cfg, table)
+    constraint = make_constraint(cfg, codes).to("cuda")
+    tokens, scores = generate(model, torch.from_numpy(ii).cuda(), torch.from_numpy(am).cuda(),
+                              num_beams=BEAMS, constraint=constraint)
+    torch.cuda.synchronize()
+    fwd, bwd, reduce = ta.bf16_launches, ta.bf16_bwd_launches, ta.dbias_reduce_launches
+    f32_fwd, f32_bwd = ta.launches, ta.bwd_launches
+    # ---- end of the main path ----
+
+    res = art.result
+    print(f"[bf16] train (bf16) losses by epoch: {[round(x, 5) for x in res.train_losses]}; "
+          f"val: {[round(x, 5) for x in res.val_losses]}; f32 [train]: "
+          f"{[round(x, 5) for x in train['train_losses']]}")
+    assert all(np.isfinite(res.train_losses + res.val_losses)), res.train_losses
+    assert res.epochs_run == TRAIN_EPOCHS and res.train_losses[-1] < res.train_losses[0]
+    recall, recall32 = metrics["Recall@10"], train["recall10"]
+    print(f"[bf16] evaluate (trie, 20 beams): " + ", ".join(f"{k}={v:.4f}"
+                                                            for k, v in metrics.items())
+          + f"; Recall@10 {recall:.4f} against [train]'s f32 {recall32:.4f} (held at >= half)")
+    assert recall >= 0.5 * recall32, (recall, recall32)
+    steps = res.steps_run
+    want = (6 * steps + 6 * TRAIN_EPOCHS * val_batches + 2 * val_batches, 6 * steps, 4 * steps)
+    print(f"[launches] bf16 training path: t5_attention_fwd_bf16 {train_counts[0]}, "
+          f"t5_attention_bwd_bf16 {train_counts[1]}, dbias reduce {train_counts[2]} (want "
+          f"{want}: 6 and 6 a step of {steps}, 6 a val batch of {TRAIN_EPOCHS} x "
+          f"{val_batches}, 2 a generate batch of {val_batches})")
+    assert train_counts == want, (train_counts, want)
+    n_req = len(histories) + 1  # the requests and the batched generate, 2 launches each
+    assert (fwd - train_counts[0], bwd - train_counts[1]) == (2 * n_req, 0), (fwd, bwd)
+    assert f32_fwd == f32_bwd == 0, (f32_fwd, f32_bwd)  # nothing went through the f32 kernels
+    for hist, items in zip(histories, served):
+        assert 1 <= len(items) <= TOP_K and not set(items) & set(hist), (hist, items)
+        print(f"[bf16] served history of {len(hist)} items -> {items}")
+
+    rows = 8
+    cpu = TIGER(cfg)
+    cpu.load_state_dict(art.params)
+    cpu.eval()
+    ct, cs = generate(cpu, torch.from_numpy(ii[:rows]), torch.from_numpy(am[:rows]),
+                      num_beams=BEAMS, constraint=make_constraint(cfg, codes))
+    gen_err = (cs - scores[:rows].cpu()).abs().max().item()
+    gen_tol = BF16_GEN_REL * cs[cs > -1e29].abs().max().item()
+    margin = (cs[:, 0] - cs[:, 1]).numpy()
+    clear = margin > BF16_GEN_MARGIN
+    same = (ct[:, 0] == tokens[:rows, 0].cpu()).all(dim=1).numpy()
+    print(f"[bf16] generate B={BATCH} beams={BEAMS}: first {rows} rows against the CPU's bf16 "
+          f"call: scores max abs {gen_err:.3e} (bound {gen_tol:.3e}); top sequence equal on "
+          f"{int(same.sum())} of {rows} rows, on {int((same & clear).sum())} of the "
+          f"{int(clear.sum())} whose margin exceeds {BF16_GEN_MARGIN}")
+    assert gen_err <= gen_tol and same[clear].all(), (gen_err, same, margin)
+
+    # (d)
+    ptr, _ = prefix_data
+    dist["tiger_prefix"] = bf16_step_parity(
+        "bf16-prefix-step",
+        maker(TIGERPrefix, with_dtype(TIGERPrefixConfig(), "float32", dropout_rate=0.0)),
+        ptr, tpp.loss_fn)
+    corpus, items, users = dense_data
+    dcfg0 = with_dtype(DenseT5Config(), "float32", dropout_rate=0.0)
+
+    def dense_loss(model, batch, generator):
+        p = next(model.parameters())
+        tables = [torch.from_numpy(t).to(p.device, p.dtype) for t in (items, users)]
+        return dtp.make_loss_fn(dcfg0, *tables)(model, batch, generator)
+
+    dist["dense_t5"] = bf16_step_parity(
+        "bf16-dense-t5-step", maker(DenseT5, dcfg0),
+        build_dense_t5_arrays(corpus, dcfg0.max_seq_len, "train").arrays, dense_loss)
+
+    # (e) one step, profiled, beside [train]'s f32 step (outside the counted path)
+    trainer = tiger_pipeline.build_trainer(cfg, tr, te, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = trainer.gather(trainer.train_data, torch.arange(BATCH, device="cuda"))
+    prof = profile_window(f"one bf16 train step (B={BATCH}, Lt=156, dropout 0.1)",
+                          lambda: trainer.train_step(batch, gen), top_n=12)
+    device = None if prof is None else prof[0] / 1e3
+    print(f"[bf16] train step device ms: bf16 {device} against f32 {train['device_ms']} "
+          f"([train]'s profiled step)")
+    return dict(fwd=fwd, bwd=bwd, reduce=reduce, device_ms=device, recall10=recall,
+                fwd_by_path={"train": train_counts[0], "serve": fwd - train_counts[0]},
+                dist=dist, train_losses=res.train_losses)
+
+
+REMAT_FLAGS = (("plain", {}), ("remat", dict(remat=True)),
+               ("attn_remat_dropout", dict(attn_remat_dropout=True)),
+               ("ffn_remat_dropout", dict(ffn_remat_dropout=True)),
+               ("all three", dict(remat=True, attn_remat_dropout=True, ffn_remat_dropout=True)))
+
+
+def phase_remat(tr):
+    """``[remat]``: one train step of ``TIGERConfig()`` (f32) at B=256 and
+    dropout 0.1 with each rematerialisation flag and with all three, against
+    the plain step, every step from a CUDA generator of the same seed: loss
+    and every gradient within 1e-6 (whether bit-equal is printed); each
+    step's peak device memory above its start, after a reset (``remat`` and
+    ``attn_remat_dropout`` must peak below the plain step), its device ms and
+    its launches of #1 and #2 (block remat runs #1 again in the backward)."""
+    import dataclasses
+
+    from genrec_tpu_torch.configs import TIGERConfig
+    from genrec_tpu_torch.models.tiger import TIGER
+    from genrec_tpu_torch.ops import t5_attention as ta
+    from genrec_tpu_torch.pipelines.tiger_pipeline import loss_fn
+
+    base = TIGERConfig()
+    assert base.arch.dropout_rate == 0.1, base.arch
+    state = TIGER(base, generator=torch.Generator().manual_seed(3)).state_dict()
+    batch = {k: torch.from_numpy(v[:BATCH]).cuda() for k, v in tr.arrays.items()}
+    batch["valid"] = torch.ones(BATCH, dtype=torch.bool, device="cuda")
+    out = {}
+    for name, flags in REMAT_FLAGS:
+        # block remat runs #1 again in the backward: 12 launches a step instead of 6
+        want = (12 if flags.get("remat") else 6, 6)
+        model = TIGER(dataclasses.replace(base, arch=dataclasses.replace(base.arch, **flags)))
+        model.load_state_dict(state)
+        model.to("cuda").train()
+
+        def step(model=model):
+            model.zero_grad(set_to_none=True)
+            loss, _ = loss_fn(model, batch, torch.Generator(device="cuda").manual_seed(7))
+            loss.backward()
+            return loss
+
+        step()  # warm-up
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ta.launches = ta.bwd_launches = 0
+        loss = float(step())
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - start
+        counts = (ta.launches, ta.bwd_launches)
+        grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+        ms = device_ms(step, 5)
+        out[name] = dict(loss=loss, grads=grads, peak=peak, counts=counts, want=want,
+                         device_ms=ms)
+        del model
+        torch.cuda.empty_cache()
+    plain = out["plain"]
+    for name, r in out.items():
+        err = max((g - plain["grads"][k]).abs().max().item() for k, g in r["grads"].items())
+        same = r["loss"] == plain["loss"] and all(
+            torch.equal(g, plain["grads"][k]) for k, g in r["grads"].items())
+        want = r["want"]
+        r.update(grad_err=err, bit_equal=same)
+        diff = abs(r["loss"] - plain["loss"])
+        print(f"[remat] {name}: loss {r['loss']:.7f} (|diff| {diff:.2e}), "
+              f"gradients max |diff| {err:.2e}, bit-equal to the plain step: {same}; peak "
+              f"{r['peak'] / 2**20:.1f} MiB above the step's start; device "
+              f"{r['device_ms']:.3f} ms a step; launches #1 {r['counts'][0]}, #2 "
+              f"{r['counts'][1]} (want {want[0]}, {want[1]})")
+        assert diff <= 1e-6 and err <= 1e-6, (name, r["loss"], err)
+        assert r["counts"] == want, (name, r["counts"], want)
+    for name in ("remat", "attn_remat_dropout"):
+        assert out[name]["peak"] < plain["peak"], (name, out[name]["peak"], plain["peak"])
+    return {k: dict(peak_mib=v["peak"] / 2**20, device_ms=v["device_ms"],
+                    bit_equal=v["bit_equal"], grad_err=v["grad_err"]) for k, v in out.items()}
+
+
 def profile_window(label, work, reps: int = 3, top_n: int = 6):
     """Device busy time against host wall time over ``reps`` calls of
     ``work`` (torch.profiler, after one warm-up), and the ``top_n`` device
@@ -3033,6 +3571,58 @@ def flash_records(flash, build, lc_serve, lc_train):
     return recs
 
 
+def bf16_records(fwd, bwd, regs, path):
+    """The JSON records of kernels #1 and #2's bf16 entry points, timed at
+    the TIGER encoder train shape without the dropout mask (#1, as the f32
+    record's ``bench``) and the decoder self-attention with it (#2, as the
+    f32 record); launches from the ``[bf16]`` path. ``bound_ms`` counts the
+    products at the bf16 tensor-core rate (``bound_tf32x3_ms`` at the 3xTF32
+    rate the kernels run them at) and q, k, v, out, do, dq, dk and dv at 2
+    bytes."""
+    enc, dec, dec0 = fwd["enc_train_no_dropout"], bwd["dec_self_train"], bwd[
+        "dec_self_train_no_dropout"]
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms", "library_device_ms",
+            "max_abs_err")
+    fwd_rec = {
+        "name": "t5_attention_fwd_bf16", "route": "cuda",
+        "source": "genrec_tpu_torch/csrc/t5_attention_fwd.cu",
+        "replaces": "genrec_tpu/ops/t5_attention.py:115 (_fwd_kernel at a bf16 compute dtype)",
+        "launches": path["fwd"], "launches_by_path": path["fwd_by_path"],
+        "max_abs_err": max(r["max_abs_err"] for r in fwd.values()),
+        "ms": enc["ms"], "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
+        "bound_by": enc["bound_by"], "bound_tf32x3_ms": enc["bound_tf32x3_ms"],
+        "library_ms": enc["library_ms"], "device_ms": enc["device_ms"],
+        "library_device_ms": enc["library_device_ms"],
+        "shape": "q/k/v (4*256, 80, 16) bf16, bias (4, 80, 80) f32, mask (256, 80)",
+        "library_note": "SDPA forward in bf16 with the dense additive mask, scale 1, without "
+                        "a dropout mask (no library call takes a given one)",
+        "registers_d16": regs.get("t5_attention_fwd", (None,))[0],
+        **{f"{k}_{m}": r.get(m) for k, r in fwd.items() for m in keys + (
+            "f64_err", "plain_f64_err", "smem_bytes", "blocks_per_sm")},
+    }
+    bwd_rec = {
+        "name": "t5_attention_bwd_bf16", "route": "cuda",
+        "source": "genrec_tpu_torch/csrc/t5_attention_bwd.cu",
+        "replaces": "genrec_tpu/ops/t5_attention.py:129 (_bwd_kernel at a bf16 compute dtype)",
+        "launches": path["bwd"], "launches_by_path": {"train": path["bwd"]},
+        "max_abs_err": max(r["max_abs_err"] for r in bwd.values()),
+        "max_rel_err": max(r["max_rel_err"] for r in bwd.values()),
+        "ms": dec["ms"], "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
+        "bound_by": dec["bound_by"], "bound_tf32x3_ms": dec["bound_tf32x3_ms"],
+        "library_ms": dec0["library_ms"], "ms_no_dropout": dec0["ms"],
+        "device_ms": dec["device_ms"], "library_device_ms": dec0["library_device_ms"],
+        "shape": "decoder self-attention: q/k/v/do (4*256, 156, 16) bf16, bias (4, 156, 156) "
+                 "f32 with the causal mask folded in, f32 dropout mask (1024, 156, 156); ms "
+                 "includes the f32 dbias reduction",
+        "library_note": "SDPA backward in bf16 at the same shape without the dropout mask, "
+                        "beside ms_no_dropout",
+        "registers_d16": regs.get("t5_attention_bwd", (None,))[0],
+        **{f"{k}_{m}": r.get(m) for k, r in bwd.items() for m in keys + (
+            "max_rel_err", "smem_bytes", "blocks_per_sm")},
+    }
+    return [fwd_rec, bwd_rec]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the card only",
@@ -3041,14 +3631,18 @@ def main() -> int:
     sys.path.insert(0, HERE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # a bf16 GEMM sums in f32, as XLA's does (the library leaves this to its caller)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = card_line()
     print(f"[device] {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
           f"tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
-          f"cudnn={torch.backends.cudnn.allow_tf32}")
+          f"cudnn={torch.backends.cudnn.allow_tf32}; bf16 reduced-precision reduction="
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
     t_start = time.perf_counter()
     results, ptxas = phase_kernels()
     bwd = phase_bwd_kernels()
     reduce = phase_dbias_reduce()
+    bf16_fwd, bf16_bwd, bf16_regs = phase_bf16_kernels()
     flash, flash_build = phase_flash()
     tr, te, codes = train_corpus()
     phase_train_step_parity(tr)
@@ -3057,9 +3651,12 @@ def main() -> int:
         train = phase_train(tmp, tr, te, codes)
         dist_run = phase_dist(tmp, tr, te, train)
         rq_codes, rqvae = phase_rqvae(tmp)
-        prefix = phase_tiger_prefix(tmp, *prefix_corpus(rq_codes))
+        prefix_data = prefix_corpus(rq_codes)
+        prefix = phase_tiger_prefix(tmp, *prefix_data)
         corpus, items, users = dense_corpus()
         dense = phase_dense_t5(tmp, corpus, items, users)
+        bf16 = phase_bf16(tmp, tr, te, codes, train, prefix_data, (corpus, items, users))
+        remat = phase_remat(tr)
         lc_serve = phase_sasrec_large_serve()
         phase_sasrec_large_train_parity()
         sas_data, sas_cfg = phase_sasrec(tmp)
@@ -3070,6 +3667,7 @@ def main() -> int:
     assert dist_run["tiger"]["fwd"] > 0 and dist_run["tiger"]["bwd"] > 0
     assert prefix["fwd"] > 0 and prefix["bwd"] > 0 and prefix["reduce"] > 0
     assert dense["fwd"] > 0 and dense["bwd"] > 0 and dense["reduce"] > 0
+    assert bf16["fwd"] > 0 and bf16["bwd"] > 0 and bf16["reduce"] > 0
     app_fwd = app["tiger"]["launches"] + app["dense_t5"]["launches"]
     assert app_fwd > 0 and cli_run["fwd"] > 0
     assert lc_serve["fwd"] > 0 and all(n > 0 for n in lc_train["counts"][0])
@@ -3206,9 +3804,14 @@ def main() -> int:
               f"{k} {dist_run[k]['runs']['psum'][1]:.2f} ms host, peak "
               f"{dist_run[k]['peak_gib']:.2f} GiB" for k in ("float32", "bfloat16"))
           + f", phase {dist_run['seconds']:.1f} s"
-          f"; script {time.perf_counter() - t_start:.1f} s")
-    kernels = [fwd_record, bwd_record, reduce_record] + flash_records(flash, flash_build,
-                                                                      lc_serve, lc_train)
+          + f"; bf16 TIGER: train step device {bf16['device_ms']} ms against f32 "
+          f"{train['device_ms']} ms, Recall@10 {bf16['recall10']:.4f}; remat peak MiB / device "
+          "ms: " + ", ".join(f"{k} {v['peak_mib']:.1f} / {v['device_ms']:.3f}"
+                             for k, v in remat.items())
+          + f"; script {time.perf_counter() - t_start:.1f} s")
+    kernels = [fwd_record, bwd_record, reduce_record,
+               *bf16_records(bf16_fwd, bf16_bwd, bf16_regs, bf16)] + flash_records(
+                   flash, flash_build, lc_serve, lc_train)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

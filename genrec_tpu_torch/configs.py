@@ -39,9 +39,11 @@ class MeshConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
     """Shared trainer knobs (``train/trainer.py``). The port's trainer does
-    not read ``bucket_interleave_chunks``, ``profile_dir``, ``composite_mix``,
-    ``param_dtype`` or ``compute_dtype`` yet; they are kept so TIGERConfig
-    compares with the reference. ``shard_dataset`` (None: on with more than
+    not read ``bucket_interleave_chunks``, ``profile_dir`` or
+    ``composite_mix`` yet, nor ``param_dtype`` and ``compute_dtype``, which
+    the reference reads nowhere either (the T5 models' compute dtype is
+    ``T5ArchConfig.dtype``); they are kept so TIGERConfig compares with the
+    reference. ``shard_dataset`` (None: on with more than
     one rank) splits the datasets' rows over the mesh's 'data' axis."""
 
     batch_size: int = 128
@@ -105,7 +107,14 @@ class RQVAEConfig:
 class T5ArchConfig:
     """Scratch T5 architecture (HF `T5Config` semantics): relative position
     biases, RMS layer norm, relu feed-forward, tied embeddings with
-    d_model**-0.5 logit scaling, unscaled attention."""
+    d_model**-0.5 logit scaling, unscaled attention.
+
+    ``dtype`` is the computation dtype, "float32" or "bfloat16" (any other
+    name raises when a model is built); parameters stay f32 (see the
+    ``models/t5.py`` docstring for where bf16 is placed). ``remat``
+    checkpoints each block, ``ffn_remat_dropout`` each feed-forward, and
+    ``attn_remat_dropout`` draws the attention's dropout mask again in the
+    backward instead of keeping it; none of them changes the math."""
 
     vocab_size: int = 64
     num_layers: int = 2          # encoder layers
@@ -124,7 +133,7 @@ class T5ArchConfig:
     decoder_start_token_id: int = 0  # = pad (RQVAE-T5/model.py:22)
     tie_word_embeddings: bool = True
     fused_attention: str = "auto"  # not read by the port (module docstring)
-    dtype: str = "float32"  # the port computes in float32 only so far
+    dtype: str = "float32"  # computation dtype: float32 | bfloat16 (params stay f32)
     remat: bool = False
     attn_remat_dropout: bool = False
     ffn_remat_dropout: bool = False

@@ -1,4 +1,5 @@
-// Fused T5 attention backward for Hopper (sm_90a), f32 in and out.
+// Fused T5 attention backward for Hopper (sm_90a): q, k, v, dO, dq, dk and dv
+// in f32 (t5_attention_bwd) or in bf16 (t5_attention_bwd_bf16); dbias in f32.
 //
 // Replaces the Pallas TPU kernel `_bwd_kernel` of genrec_tpu/ops/t5_attention.py
 // (reached through `_bwd_call`). It computes the same function, not the same
@@ -63,7 +64,16 @@
 //     output has one owner and a fixed summation order, so dq, dk, dv and dbias
 //     are bit-identical between two calls on the same inputs, as the TPU kernel's
 //     are (it summed dbias over an ordered grid axis).
+//
+// The bf16 entry point copies the reference's kernel at a bf16 compute dtype,
+// which casts q, k, v and dO to f32 and computes everything in f32: this is the
+// same code instantiated for bf16 I/O, with q, k, v and dO converted to f32 as
+// they are staged (plain 16-byte loads instead of cp.async, since the copy
+// converts) and dq, dk and dv rounded to bf16 once, at their stores. The bias,
+// the dropout mask and the dbias scratch stay f32, and the reduction kernel is
+// the f32 one. Shared memory and the limits are the f32 kernel's.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
@@ -93,22 +103,34 @@ size_t smem_floats(int lq, int lk, int d) {
          + lkp;                    // additive key mask, -inf past the last key
 }
 
+using bf16 = __nv_bfloat16;
+
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
+  const void* q;  // q, k, v, dout, dq, dk and dv: f32 or bf16, as the entry point says
+  const void* k;
+  const void* v;
   const float* pos_bias;
   const int32_t* kv_mask;
   const float* dmask;
-  const float* dout;
-  float* dq;
-  float* dk;
-  float* dv;
+  const void* dout;
+  void* dq;
+  void* dk;
+  void* dv;
   float* dbias_part;
   int batch, lq, lk, d, causal;
   int vec16;  // q, k, v, dO staged 16 bytes at a time
   int pair;   // bias, dropout mask and dbias scratch read and written 2 floats at a time
 };
+
+// ---- f32 and bf16 I/O ----
+
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const bf16* p) {  // exact: a bf16 is an f32's high half
+  return __uint_as_float(static_cast<uint32_t>(__ldg(reinterpret_cast<const unsigned short*>(p)))
+                         << 16);
+}
+__device__ __forceinline__ void st(float* p, float x) { *p = x; }
+__device__ __forceinline__ void st(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 // ---- TF32 tensor-core helpers ----
 
@@ -278,7 +300,7 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
 
 // rows x d floats from global into shared memory at row stride `stride`.
 __device__ __forceinline__ void stage(float* dst, const float* src, int rows, int d, int stride,
-                                      bool vec16) {
+                                      int vec16) {
   if (vec16) {
     const int per_row = d / 4;
     for (int idx = threadIdx.x; idx < rows * per_row; idx += kThreads) {
@@ -289,6 +311,33 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int rows, in
     for (int idx = threadIdx.x; idx < rows * d; idx += kThreads) {
       const int r = idx / d, c = idx - r * d;
       cp_async4(dst + r * stride + c, src + idx);
+    }
+  }
+}
+
+// rows x d bf16 values from global into shared memory as f32, at row stride
+// `stride`: 8 values (16 bytes) a load where vec16, else one. The copy
+// converts, so it is a plain load and store, complete at the block's barrier.
+__device__ __forceinline__ void stage(float* dst, const bf16* src, int rows, int d, int stride,
+                                      int vec16) {
+  if (vec16) {
+    const int per_row = d / 8;
+    for (int idx = threadIdx.x; idx < rows * per_row; idx += kThreads) {
+      const int r = idx / per_row, c = (idx - r * per_row) * 8;
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(src + ((size_t)r * d + c)));
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+      float4* out = reinterpret_cast<float4*>(dst + r * stride + c);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)  // the low half of a word is the lower index
+        out[h] = make_float4(__uint_as_float(w[2 * h] << 16),
+                             __uint_as_float(w[2 * h] & 0xffff0000u),
+                             __uint_as_float(w[2 * h + 1] << 16),
+                             __uint_as_float(w[2 * h + 1] & 0xffff0000u));
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * d; idx += kThreads) {
+      const int r = idx / d, c = idx - r * d;
+      dst[r * stride + c] = ld(src + idx);
     }
   }
 }
@@ -304,11 +353,11 @@ __device__ __forceinline__ void zero_pad(float* dst, int rows, int rows_p, int d
 
 // ---- phase A: a warp per 16-row query strip: softmax statistics, delta, dq ----
 
-template <int ND>
+template <int ND, typename T>
 __device__ __forceinline__ void phase_a(const Params& P, const float* sq, const float* sdo,
                                         const float* sk, const float* sv, float4* stats,
                                         const float* madd, const float* bias_h,
-                                        const float* dm_hb, float* dq_hb, float* part, int lqp,
+                                        const float* dm_hb, T* dq_hb, float* part, int lqp,
                                         int lkp, int warp, int g, int t) {
   constexpr int S = 8 * ND + 4;
   for (int r0 = warp * 16; r0 < lqp; r0 += kWarps * 16) {  // warp-uniform
@@ -425,18 +474,18 @@ __device__ __forceinline__ void phase_a(const Params& P, const float* sq, const 
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = rows[e >> 1], c = 8 * nd + 2 * t + (e & 1);
-        if (i < P.lq && c < P.d) dq_hb[(size_t)i * P.d + c] = acc[nd][e];
+        if (i < P.lq && c < P.d) st(dq_hb + ((size_t)i * P.d + c), acc[nd][e]);
       }
   }
 }
 
 // ---- phase B: a warp per 16-key strip: dk, dv ----
 
-template <int ND>
+template <int ND, typename T>
 __device__ __forceinline__ void phase_b(const Params& P, const float* sq, const float* sdo,
                                         const float* sk, const float* sv, const float4* stats,
                                         const float* madd, const float* bias_h,
-                                        const float* dm_hb, float* dk_hb, float* dv_hb, int lqp,
+                                        const float* dm_hb, T* dk_hb, T* dv_hb, int lqp,
                                         int lkp, int warp, int g, int t) {
   constexpr int S = 8 * ND + 4;
   for (int c0 = warp * 16; c0 < lkp; c0 += kWarps * 16) {  // warp-uniform
@@ -503,18 +552,16 @@ __device__ __forceinline__ void phase_b(const Params& P, const float* sq, const 
       for (int e = 0; e < 4; ++e) {
         const int j = keys[e >> 1], c = 8 * nd + 2 * t + (e & 1);
         if (j < P.lk && c < P.d) {
-          dk_hb[(size_t)j * P.d + c] = dka[nd][e];
-          dv_hb[(size_t)j * P.d + c] = dva[nd][e];
+          st(dk_hb + ((size_t)j * P.d + c), dka[nd][e]);
+          st(dv_hb + ((size_t)j * P.d + c), dva[nd][e]);
         }
       }
   }
 }
 
-// Four blocks an SM at D <= 16 (the registers of 20 warps: 96 a thread); one
-// block of one flat row hb.
-template <int ND>
-__global__ void __launch_bounds__(kThreads, ND <= 2 ? 4 : (ND == 4 ? 2 : 1))
-t5_attention_bwd_kernel(const Params P) {
+// One block of one flat row hb, with q, k, v, dO, dq, dk and dv of type T.
+template <int ND, typename T>
+__device__ __forceinline__ void bwd_block(const Params& P) {
   extern __shared__ __align__(16) float smem[];
   constexpr int S = 8 * ND + 4;
   const int lqp = pad16(P.lq), lkp = pad16(P.lk);
@@ -537,10 +584,10 @@ t5_attention_bwd_kernel(const Params P) {
   zero_pad(sdo, P.lq, lqp, P.d, 8 * ND, S);
   zero_pad(sk, P.lk, lkp, P.d, 8 * ND, S);
   zero_pad(sv, P.lk, lkp, P.d, 8 * ND, S);
-  stage(sq, P.q + q_off, P.lq, P.d, S, P.vec16);
-  stage(sdo, P.dout + q_off, P.lq, P.d, S, P.vec16);
-  stage(sk, P.k + kv_off, P.lk, P.d, S, P.vec16);
-  stage(sv, P.v + kv_off, P.lk, P.d, S, P.vec16);
+  stage(sq, static_cast<const T*>(P.q) + q_off, P.lq, P.d, S, P.vec16);
+  stage(sdo, static_cast<const T*>(P.dout) + q_off, P.lq, P.d, S, P.vec16);
+  stage(sk, static_cast<const T*>(P.k) + kv_off, P.lk, P.d, S, P.vec16);
+  stage(sv, static_cast<const T*>(P.v) + kv_off, P.lk, P.d, S, P.vec16);
   asm volatile("cp.async.commit_group;");
   for (int j = threadIdx.x; j < lkp; j += kThreads)
     madd[j] = j >= P.lk  ? -INFINITY
@@ -549,11 +596,24 @@ t5_attention_bwd_kernel(const Params P) {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
   __syncthreads();
 
-  phase_a<ND>(P, sq, sdo, sk, sv, stats, madd, bias_h, dm_hb, P.dq + q_off, part, lqp, lkp,
-              warp, g, t);
+  phase_a<ND>(P, sq, sdo, sk, sv, stats, madd, bias_h, dm_hb, static_cast<T*>(P.dq) + q_off,
+              part, lqp, lkp, warp, g, t);
   __syncthreads();  // the statistics of every query row
-  phase_b<ND>(P, sq, sdo, sk, sv, stats, madd, bias_h, dm_hb, P.dk + kv_off, P.dv + kv_off,
-              lqp, lkp, warp, g, t);
+  phase_b<ND>(P, sq, sdo, sk, sv, stats, madd, bias_h, dm_hb, static_cast<T*>(P.dk) + kv_off,
+              static_cast<T*>(P.dv) + kv_off, lqp, lkp, warp, g, t);
+}
+
+// Four blocks an SM at D <= 16 (the registers of 20 warps: 96 a thread).
+template <int ND>
+__global__ void __launch_bounds__(kThreads, ND <= 2 ? 4 : (ND == 4 ? 2 : 1))
+t5_attention_bwd_kernel(const Params P) {
+  bwd_block<ND, float>(P);
+}
+
+template <int ND>
+__global__ void __launch_bounds__(kThreads, ND <= 2 ? 4 : (ND == 4 ? 2 : 1))
+t5_attention_bwd_bf16_kernel(const Params P) {
+  bwd_block<ND, bf16>(P);
 }
 
 // dbias[h, e] = sum over chunks c, in order, of part[h, c, e].
@@ -577,28 +637,39 @@ t5_attention_dbias_reduce_kernel(const float* __restrict__ part, float* __restri
   out[idx] = acc;
 }
 
-template <int ND>
-cudaError_t prepare(size_t smem) {
+using Kernel = void (*)(Params);
+
+// The instantiation for I/O type T at ND feature steps.
+template <typename T>
+Kernel kernel_of(int nd) {
+  constexpr bool f = sizeof(T) == sizeof(float);
+  switch (nd) {
+    case 1: return f ? &t5_attention_bwd_kernel<1> : &t5_attention_bwd_bf16_kernel<1>;
+    case 2: return f ? &t5_attention_bwd_kernel<2> : &t5_attention_bwd_bf16_kernel<2>;
+    case 4: return f ? &t5_attention_bwd_kernel<4> : &t5_attention_bwd_bf16_kernel<4>;
+    case 8: return f ? &t5_attention_bwd_kernel<8> : &t5_attention_bwd_bf16_kernel<8>;
+    default: return f ? &t5_attention_bwd_kernel<16> : &t5_attention_bwd_bf16_kernel<16>;
+  }
+}
+
+cudaError_t prepare(Kernel k, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(t5_attention_bwd_kernel<ND>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int ND>
-cudaError_t launch(const Params& P, int grid, size_t smem, cudaStream_t stream) {
-  const cudaError_t e = prepare<ND>(smem);
+cudaError_t launch(Kernel k, Params P, int grid, size_t smem, cudaStream_t stream) {
+  const cudaError_t e = prepare(k, smem);
   if (e != cudaSuccess) return e;
-  t5_attention_bwd_kernel<ND><<<grid, kThreads, smem, stream>>>(P);
-  return cudaGetLastError();
+  void* args[] = {&P};
+  const cudaError_t l = cudaLaunchKernel(reinterpret_cast<const void*>(k), dim3(grid),
+                                         dim3(kThreads), args, smem, stream);
+  return l != cudaSuccess ? l : cudaGetLastError();
 }
 
-template <int ND>
-int occupancy(size_t smem) {
-  cudaError_t e = prepare<ND>(smem);
+int occupancy(Kernel k, size_t smem) {
+  cudaError_t e = prepare(k, smem);
   int n = 0;
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, t5_attention_bwd_kernel<ND>,
-                                                      kThreads, smem);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k, kThreads, smem);
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
@@ -606,27 +677,49 @@ bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
+size_t smem_bytes(int lq, int lk, int d) { return smem_floats(lq, lk, d) * sizeof(float); }
+
+template <typename T>
+int blocks_per_sm(int lq, int lk, int d) {
+  const size_t smem = smem_bytes(lq, lk, d);
+  if (smem > kMaxSmem || d <= 0 || d > kMaxD) return -static_cast<int>(cudaErrorInvalidValue);
+  return occupancy(kernel_of<T>(nd_of(d)), smem);
+}
+
+template <typename T>
+int run(const void* q, const void* k, const void* v, const void* pos_bias, const void* kv_mask,
+        const void* dmask, const void* dout, void* dq, void* dk, void* dv, void* dbias_part,
+        int hb, int batch, int lq, int lk, int d, int causal, void* stream) {
+  const size_t smem = smem_bytes(lq, lk, d);
+  if (smem > kMaxSmem || hb <= 0 || batch <= 0 || hb % batch != 0 || lq <= 0 || lk <= 0 ||
+      d <= 0 || d > kMaxD)
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int per16 = 16 / sizeof(T);  // values in one 16-byte staging load
+  Params P{q, k, v, static_cast<const float*>(pos_bias),
+           static_cast<const int32_t*>(kv_mask), static_cast<const float*>(dmask),
+           dout, dq, dk, dv, static_cast<float*>(dbias_part), batch, lq, lk, d, causal,
+           d % per16 == 0 && aligned(q, 16) && aligned(k, 16) && aligned(v, 16) &&
+               aligned(dout, 16),
+           lk % 2 == 0 && aligned(pos_bias, 8) && aligned(dmask, 8) && aligned(dbias_part, 8)};
+  return static_cast<int>(launch(kernel_of<T>(nd_of(d)), P, hb, smem,
+                                 static_cast<cudaStream_t>(stream)));
+}
+
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs for (lq, lk, d).
-size_t t5_attention_bwd_smem_bytes(int lq, int lk, int d) {
-  return smem_floats(lq, lk, d) * sizeof(float);
-}
+// Bytes of dynamic shared memory one block needs for (lq, lk, d), at either I/O type.
+size_t t5_attention_bwd_smem_bytes(int lq, int lk, int d) { return smem_bytes(lq, lk, d); }
 
-// Blocks of the backward kernel resident on one SM at (lq, lk, d), from
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor; minus the CUDA error on failure.
+// Blocks of the f32 (bf16) backward kernel resident on one SM at (lq, lk, d),
+// from cudaOccupancyMaxActiveBlocksPerMultiprocessor; minus the CUDA error on
+// failure.
 int t5_attention_bwd_blocks_per_sm(int lq, int lk, int d) {
-  const size_t smem = t5_attention_bwd_smem_bytes(lq, lk, d);
-  if (smem > kMaxSmem || d <= 0 || d > kMaxD) return -static_cast<int>(cudaErrorInvalidValue);
-  switch (nd_of(d)) {
-    case 1: return occupancy<1>(smem);
-    case 2: return occupancy<2>(smem);
-    case 4: return occupancy<4>(smem);
-    case 8: return occupancy<8>(smem);
-    default: return occupancy<16>(smem);
-  }
+  return blocks_per_sm<float>(lq, lk, d);
+}
+int t5_attention_bwd_bf16_blocks_per_sm(int lq, int lk, int d) {
+  return blocks_per_sm<bf16>(lq, lk, d);
 }
 
 const char* t5_attention_bwd_error_string(int err) {
@@ -643,26 +736,18 @@ int t5_attention_bwd(const void* q, const void* k, const void* v, const void* po
                      const void* kv_mask, const void* dmask, const void* dout, void* dq,
                      void* dk, void* dv, void* dbias_part, int hb, int batch, int lq, int lk,
                      int d, int causal, void* stream) {
-  const size_t smem = t5_attention_bwd_smem_bytes(lq, lk, d);
-  if (smem > kMaxSmem || hb <= 0 || batch <= 0 || hb % batch != 0 || lq <= 0 || lk <= 0 ||
-      d <= 0 || d > kMaxD)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Params P{static_cast<const float*>(q),      static_cast<const float*>(k),
-           static_cast<const float*>(v),      static_cast<const float*>(pos_bias),
-           static_cast<const int32_t*>(kv_mask), static_cast<const float*>(dmask),
-           static_cast<const float*>(dout),   static_cast<float*>(dq),
-           static_cast<float*>(dk),           static_cast<float*>(dv),
-           static_cast<float*>(dbias_part),   batch, lq, lk, d, causal,
-           d % 4 == 0 && aligned(q, 16) && aligned(k, 16) && aligned(v, 16) && aligned(dout, 16),
-           lk % 2 == 0 && aligned(pos_bias, 8) && aligned(dmask, 8) && aligned(dbias_part, 8)};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (nd_of(d)) {
-    case 1: return static_cast<int>(launch<1>(P, hb, smem, st));
-    case 2: return static_cast<int>(launch<2>(P, hb, smem, st));
-    case 4: return static_cast<int>(launch<4>(P, hb, smem, st));
-    case 8: return static_cast<int>(launch<8>(P, hb, smem, st));
-    default: return static_cast<int>(launch<16>(P, hb, smem, st));
-  }
+  return run<float>(q, k, v, pos_bias, kv_mask, dmask, dout, dq, dk, dv, dbias_part, hb, batch,
+                    lq, lk, d, causal, stream);
+}
+
+// As t5_attention_bwd, with q, k, v, dout, dq, dk and dv in bf16 (pos_bias,
+// dmask and dbias_part f32).
+int t5_attention_bwd_bf16(const void* q, const void* k, const void* v, const void* pos_bias,
+                          const void* kv_mask, const void* dmask, const void* dout, void* dq,
+                          void* dk, void* dv, void* dbias_part, int hb, int batch, int lq,
+                          int lk, int d, int causal, void* stream) {
+  return run<bf16>(q, k, v, pos_bias, kv_mask, dmask, dout, dq, dk, dv, dbias_part, hb, batch,
+                   lq, lk, d, causal, stream);
 }
 
 // dbias (heads, n) = the sum over the chunk axis of part (heads, nchunk, n), in

@@ -1,4 +1,5 @@
-// Fused T5 attention forward for Hopper (sm_90a), f32 in and out.
+// Fused T5 attention forward for Hopper (sm_90a): q, k, v and out in f32
+// (t5_attention_fwd) or in bf16 (t5_attention_fwd_bf16).
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` of genrec_tpu/ops/t5_attention.py
 // (reached through `_fwd_call`). It computes the same function, not the same
@@ -75,7 +76,23 @@
 //   - accurate expf, no fast-math; no atomics. Every output has one owner and a
 //     fixed order of summation, which does not depend on how the strips are
 //     split over blocks, so two calls give bit-equal outputs.
+//
+// The bf16 entry point is the reference's kernel at a bf16 compute dtype: q, k
+// and v are bf16, the bias and the dropout mask stay f32, out is bf16. It is
+// the same code instantiated for bf16 I/O: q, k and v are converted to f32 as
+// they are loaded (K and V by plain 16-byte loads instead of cp.async, since
+// the copy converts), so the staging, the shared memory and the limits
+// (D <= 128, Lk <= 1,416 at D = 16) are the f32 kernel's. A bf16 value is
+// exact in TF32, so the 3xTF32 split of q, k and v has a zero low part and
+// q.k comes out exact before the f32 sums. As the reference rounds the
+// probabilities to v's dtype before P.V (f32 accumulation), this kernel
+// rounds each tile's e^(s - m) * dm to bf16 before its P.V; the reference
+// rounds the normalised probability, so the two round at different points,
+// a difference of the order of one bf16 rounding of the output. out is
+// rounded to bf16 once, at its store. The bytes of q, k, v and out halve;
+// the f32 dropout mask, when given, stays the largest input.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
@@ -106,20 +123,44 @@ size_t smem_floats(int lk, int d) {
          + lkp;            // additive key mask, -inf past the last key
 }
 
+using bf16 = __nv_bfloat16;
+
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
+  const void* q;  // q, k, v and out: f32 or bf16, as the entry point says
+  const void* k;
+  const void* v;
   const float* pos_bias;
   const int32_t* kv_mask;
   const float* dmask;
-  float* out;
+  void* out;
   int batch, lq, lk, d, causal;
   int spb;    // query strips per block
   int vec16;  // k and v staged 16 bytes at a time
   int pair;   // bias and dropout mask read 2 floats at a time
-  int out2;   // out written 2 floats at a time
+  int out2;   // out written 2 values at a time
 };
+
+// ---- f32 and bf16 I/O ----
+
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const bf16* p) {  // exact: a bf16 is an f32's high half
+  return __uint_as_float(static_cast<uint32_t>(__ldg(reinterpret_cast<const unsigned short*>(p)))
+                         << 16);
+}
+__device__ __forceinline__ void st(float* p, float x) { *p = x; }
+__device__ __forceinline__ void st(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void st2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+// A probability as the P.V product takes it: f32, or rounded to bf16 as the
+// reference rounds p to v's dtype.
+__device__ __forceinline__ float as_p(float x, const float*) { return x; }
+__device__ __forceinline__ float as_p(float x, const bf16*) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 // ---- TF32 tensor-core helpers ----
 
@@ -160,13 +201,14 @@ __device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, const FragB&
 
 // A fragment of rows r0..r0+15, features k0..k0+7 of the flat row's q (lq x d
 // in global memory), zero past the last row and the last feature.
-__device__ __forceinline__ void load_q(FragA& f, const float* q, const Params& P, int r0, int k0,
+template <typename T>
+__device__ __forceinline__ void load_q(FragA& f, const T* q, const Params& P, int r0, int k0,
                                        int g, int t) {
   const int rows[2] = {r0 + g, r0 + g + 8}, cols[2] = {k0 + t, k0 + t + 4};
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const int i = rows[e & 1], c = cols[e >> 1];
-    split(i < P.lq && c < P.d ? __ldg(q + (i * P.d + c)) : 0.0f, f.hi[e], f.lo[e]);
+    split(i < P.lq && c < P.d ? ld(q + (i * P.d + c)) : 0.0f, f.hi[e], f.lo[e]);
   }
 }
 
@@ -175,8 +217,8 @@ __device__ __forceinline__ void load_q(FragA& f, const float* q, const Params& P
 template <int ND>
 constexpr int kHeld = ND <= 8 ? ND : 1;
 
-template <int ND>
-__device__ __forceinline__ void hold(FragA (&f)[kHeld<ND>], const float* q, const Params& P,
+template <int ND, typename T>
+__device__ __forceinline__ void hold(FragA (&f)[kHeld<ND>], const T* q, const Params& P,
                                      int r0, int g, int t) {
   if constexpr (ND <= 8) {
 #pragma unroll
@@ -185,8 +227,8 @@ __device__ __forceinline__ void hold(FragA (&f)[kHeld<ND>], const float* q, cons
 }
 
 // Feature step kk of a strip: held, or reloaded.
-template <int ND>
-__device__ __forceinline__ FragA step(const FragA (&f)[kHeld<ND>], const float* q,
+template <int ND, typename T>
+__device__ __forceinline__ FragA step(const FragA (&f)[kHeld<ND>], const T* q,
                                       const Params& P, int r0, int kk, int g, int t) {
   if constexpr (ND <= 8) {
     return f[kk];
@@ -278,7 +320,7 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
 
 // rows x d floats from global into shared memory at row stride `stride`.
 __device__ __forceinline__ void stage(float* dst, const float* src, int rows, int d, int stride,
-                                      bool vec16) {
+                                      int vec16) {
   if (vec16) {
     const int per_row = d / 4;
     for (int idx = threadIdx.x; idx < rows * per_row; idx += blockDim.x) {
@@ -289,6 +331,33 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int rows, in
     for (int idx = threadIdx.x; idx < rows * d; idx += blockDim.x) {
       const int r = idx / d, c = idx - r * d;
       cp_async4(dst + r * stride + c, src + idx);
+    }
+  }
+}
+
+// rows x d bf16 values from global into shared memory as f32, at row stride
+// `stride`: 8 values (16 bytes) a load where vec16, else one. The copy
+// converts, so it is a plain load and store, complete at the block's barrier.
+__device__ __forceinline__ void stage(float* dst, const bf16* src, int rows, int d, int stride,
+                                      int vec16) {
+  if (vec16) {
+    const int per_row = d / 8;
+    for (int idx = threadIdx.x; idx < rows * per_row; idx += blockDim.x) {
+      const int r = idx / per_row, c = (idx - r * per_row) * 8;
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(src + ((size_t)r * d + c)));
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+      float4* out = reinterpret_cast<float4*>(dst + r * stride + c);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)  // the low half of a word is the lower index
+        out[h] = make_float4(__uint_as_float(w[2 * h] << 16),
+                             __uint_as_float(w[2 * h] & 0xffff0000u),
+                             __uint_as_float(w[2 * h + 1] << 16),
+                             __uint_as_float(w[2 * h + 1] & 0xffff0000u));
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * d; idx += blockDim.x) {
+      const int r = idx / d, c = idx - r * d;
+      dst[r * stride + c] = ld(src + idx);
     }
   }
 }
@@ -304,10 +373,10 @@ __device__ __forceinline__ void zero_pad(float* dst, int rows, int rows_p, int d
 
 // ---- a warp per 16-row query strip ----
 
-template <int ND>
-__device__ __forceinline__ void strip(const Params& P, const float* q_hb, const float* sk,
+template <int ND, typename T>
+__device__ __forceinline__ void strip(const Params& P, const T* q_hb, const float* sk,
                                       const float* sv, const float* madd, const float* bias_h,
-                                      const float* dm_hb, float* out_hb, int r0, int lkp, int g,
+                                      const float* dm_hb, T* out_hb, int r0, int lkp, int g,
                                       int t) {
   constexpr int S = 8 * ND + 4;
   FragA qa[kHeld<ND>];
@@ -358,8 +427,8 @@ __device__ __forceinline__ void strip(const Params& P, const float* q_hb, const 
       scale[r] = mx > m[r] ? expf(m[r] - mx) : 1.0f;  // expf(0) is 1
       const float e0 = expf(s0 - mx), e1 = expf(s1 - mx);
       l[r] = l[r] * scale[r] + e0 + e1;
-      p[2 * r] = e0 * dm[2 * r];
-      p[2 * r + 1] = e1 * dm[2 * r + 1];
+      p[2 * r] = as_p(e0 * dm[2 * r], q_hb);
+      p[2 * r + 1] = as_p(e1 * dm[2 * r + 1], q_hb);
       m[r] = mx;
     }
     // the tile's P.V, likewise in a fresh accumulator: acc = acc * scale + P.V
@@ -393,20 +462,20 @@ __device__ __forceinline__ void strip(const Params& P, const float* q_hb, const 
       const int i = rows[r], c = 8 * nd + 2 * t;
       if (i >= P.lq || c >= P.d) continue;
       const float o0 = acc[nd][2 * r] / den[r], o1 = acc[nd][2 * r + 1] / den[r];
-      float* dst = out_hb + (i * P.d + c);
+      T* dst = out_hb + (i * P.d + c);
       if (P.out2) {  // d even: c + 1 < d
-        *reinterpret_cast<float2*>(dst) = make_float2(o0, o1);
+        st2(dst, o0, o1);
       } else {
-        dst[0] = o0;
-        if (c + 1 < P.d) dst[1] = o1;
+        st(dst, o0);
+        if (c + 1 < P.d) st(dst + 1, o1);
       }
     }
 }
 
-// A block of one flat row hb (blockIdx.x) and strips blockIdx.y * spb onwards.
-template <int ND>
-__global__ void __launch_bounds__(kThreads, ND <= 2 ? kMinBlocksD16 : (ND == 4 ? 2 : 1))
-t5_attention_fwd_kernel(const Params P) {
+// A block of one flat row hb (blockIdx.x) and strips blockIdx.y * spb onwards,
+// q, k, v and out of type T.
+template <int ND, typename T>
+__device__ __forceinline__ void fwd_block(const Params& P) {
   extern __shared__ __align__(16) float smem[];
   constexpr int S = 8 * ND + 4;
   const int lkp = pad8(P.lk);
@@ -418,8 +487,8 @@ t5_attention_fwd_kernel(const Params P) {
   const size_t kv_off = (size_t)hb * P.lk * P.d;
   zero_pad(sk, P.lk, lkp, P.d, 8 * ND, S);  // the staging below never writes these
   zero_pad(sv, P.lk, lkp, P.d, 8 * ND, S);
-  stage(sk, P.k + kv_off, P.lk, P.d, S, P.vec16);
-  stage(sv, P.v + kv_off, P.lk, P.d, S, P.vec16);
+  stage(sk, static_cast<const T*>(P.k) + kv_off, P.lk, P.d, S, P.vec16);
+  stage(sv, static_cast<const T*>(P.v) + kv_off, P.lk, P.d, S, P.vec16);
   asm volatile("cp.async.commit_group;");
   for (int j = threadIdx.x; j < lkp; j += blockDim.x)
     madd[j] = j >= P.lk  ? -INFINITY
@@ -430,37 +499,61 @@ t5_attention_fwd_kernel(const Params P) {
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const float* q_hb = P.q + (size_t)hb * P.lq * P.d;
+  const T* q_hb = static_cast<const T*>(P.q) + (size_t)hb * P.lq * P.d;
   const float* bias_h = P.pos_bias ? P.pos_bias + (size_t)h * P.lq * P.lk : nullptr;
   const float* dm_hb = P.dmask ? P.dmask + (size_t)hb * P.lq * P.lk : nullptr;
-  float* out_hb = P.out + (size_t)hb * P.lq * P.d;
+  T* out_hb = static_cast<T*>(P.out) + (size_t)hb * P.lq * P.d;
   const int first = blockIdx.y * P.spb, last = min(first + P.spb, strips_of(P.lq));
   for (int st = first + warp; st < last; st += blockDim.x >> 5)  // warp-uniform
     strip<ND>(P, q_hb, sk, sv, madd, bias_h, dm_hb, out_hb, 16 * st, lkp, g, t);
 }
 
 template <int ND>
-cudaError_t prepare(size_t smem) {
+__global__ void __launch_bounds__(kThreads, ND <= 2 ? kMinBlocksD16 : (ND == 4 ? 2 : 1))
+t5_attention_fwd_kernel(const Params P) {
+  fwd_block<ND, float>(P);
+}
+
+template <int ND>
+__global__ void __launch_bounds__(kThreads, ND <= 2 ? kMinBlocksD16 : (ND == 4 ? 2 : 1))
+t5_attention_fwd_bf16_kernel(const Params P) {
+  fwd_block<ND, bf16>(P);
+}
+
+using Kernel = void (*)(Params);
+
+// The instantiation for I/O type T at ND feature steps.
+template <typename T>
+Kernel kernel_of(int nd) {
+  constexpr bool f = sizeof(T) == sizeof(float);
+  switch (nd) {
+    case 1: return f ? &t5_attention_fwd_kernel<1> : &t5_attention_fwd_bf16_kernel<1>;
+    case 2: return f ? &t5_attention_fwd_kernel<2> : &t5_attention_fwd_bf16_kernel<2>;
+    case 4: return f ? &t5_attention_fwd_kernel<4> : &t5_attention_fwd_bf16_kernel<4>;
+    case 8: return f ? &t5_attention_fwd_kernel<8> : &t5_attention_fwd_bf16_kernel<8>;
+    default: return f ? &t5_attention_fwd_kernel<16> : &t5_attention_fwd_bf16_kernel<16>;
+  }
+}
+
+cudaError_t prepare(Kernel k, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(t5_attention_fwd_kernel<ND>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int ND>
-cudaError_t launch(const Params& P, dim3 grid, int threads, size_t smem, cudaStream_t stream) {
-  const cudaError_t e = prepare<ND>(smem);
+cudaError_t launch(Kernel k, Params P, dim3 grid, int threads, size_t smem,
+                   cudaStream_t stream) {
+  const cudaError_t e = prepare(k, smem);
   if (e != cudaSuccess) return e;
-  t5_attention_fwd_kernel<ND><<<grid, threads, smem, stream>>>(P);
-  return cudaGetLastError();
+  void* args[] = {&P};
+  const cudaError_t l = cudaLaunchKernel(reinterpret_cast<const void*>(k), grid, dim3(threads),
+                                         args, smem, stream);
+  return l != cudaSuccess ? l : cudaGetLastError();
 }
 
-template <int ND>
-int occupancy(int threads, size_t smem) {
-  cudaError_t e = prepare<ND>(smem);
+int occupancy(Kernel k, int threads, size_t smem) {
+  cudaError_t e = prepare(k, smem);
   int n = 0;
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, t5_attention_fwd_kernel<ND>, threads,
-                                                      smem);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k, threads, smem);
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
@@ -479,28 +572,55 @@ bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
+size_t smem_bytes(int lk, int d) { return smem_floats(lk, d) * sizeof(float); }
+
+template <typename T>
+int blocks_per_sm(int lq, int lk, int d) {
+  const size_t smem = smem_bytes(lk, d);
+  if (smem > kMaxSmem || lq <= 0 || lk <= 0 || d <= 0 || d > kMaxD)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  return occupancy(kernel_of<T>(nd_of(d)), threads_of(strips_of(lq)), smem);
+}
+
+template <typename T>
+int run(const void* q, const void* k, const void* v, const void* pos_bias, const void* kv_mask,
+        const void* dmask, void* out, int hb, int batch, int lq, int lk, int d, int causal,
+        void* stream) {
+  const size_t smem = smem_bytes(lk, d);
+  if (smem > kMaxSmem || hb <= 0 || batch <= 0 || hb % batch != 0 || lq <= 0 || lk <= 0 ||
+      d <= 0 || d > kMaxD)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int spb = strips_per_block(hb, lq);
+  constexpr int per16 = 16 / sizeof(T);  // values in one 16-byte staging load
+  Params P{q, k, v,
+           static_cast<const float*>(pos_bias),
+           static_cast<const int32_t*>(kv_mask),
+           static_cast<const float*>(dmask),
+           out,
+           batch, lq, lk, d, causal, spb,
+           d % per16 == 0 && aligned(k, 16) && aligned(v, 16),
+           lk % 2 == 0 && aligned(pos_bias, 8) && aligned(dmask, 8),
+           d % 2 == 0 && aligned(out, 2 * sizeof(T))};
+  const dim3 grid(hb, (strips_of(lq) + spb - 1) / spb);
+  return static_cast<int>(launch(kernel_of<T>(nd_of(d)), P, grid, threads_of(spb), smem,
+                                 static_cast<cudaStream_t>(stream)));
+}
+
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs for (lk, d).
-size_t t5_attention_fwd_smem_bytes(int lk, int d) { return smem_floats(lk, d) * sizeof(float); }
+// Bytes of dynamic shared memory one block needs for (lk, d), at either I/O type.
+size_t t5_attention_fwd_smem_bytes(int lk, int d) { return smem_bytes(lk, d); }
 
-// Blocks of the forward kernel resident on one SM at (lq, lk, d) when each
-// block takes a whole flat row, from cudaOccupancyMaxActiveBlocksPerMultiprocessor;
-// minus the CUDA error on failure.
+// Blocks of the f32 (bf16) forward kernel resident on one SM at (lq, lk, d)
+// when each block takes a whole flat row, from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor; minus the CUDA error on failure.
 int t5_attention_fwd_blocks_per_sm(int lq, int lk, int d) {
-  const size_t smem = t5_attention_fwd_smem_bytes(lk, d);
-  if (smem > kMaxSmem || lq <= 0 || lk <= 0 || d <= 0 || d > kMaxD)
-    return -static_cast<int>(cudaErrorInvalidValue);
-  const int threads = threads_of(strips_of(lq));
-  switch (nd_of(d)) {
-    case 1: return occupancy<1>(threads, smem);
-    case 2: return occupancy<2>(threads, smem);
-    case 4: return occupancy<4>(threads, smem);
-    case 8: return occupancy<8>(threads, smem);
-    default: return occupancy<16>(threads, smem);
-  }
+  return blocks_per_sm<float>(lq, lk, d);
+}
+int t5_attention_fwd_bf16_blocks_per_sm(int lq, int lk, int d) {
+  return blocks_per_sm<bf16>(lq, lk, d);
 }
 
 const char* t5_attention_fwd_error_string(int err) {
@@ -514,32 +634,16 @@ const char* t5_attention_fwd_error_string(int err) {
 int t5_attention_fwd(const void* q, const void* k, const void* v, const void* pos_bias,
                      const void* kv_mask, const void* dmask, void* out, int hb, int batch,
                      int lq, int lk, int d, int causal, void* stream) {
-  const size_t smem = t5_attention_fwd_smem_bytes(lk, d);
-  if (smem > kMaxSmem || hb <= 0 || batch <= 0 || hb % batch != 0 || lq <= 0 || lk <= 0 ||
-      d <= 0 || d > kMaxD)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int spb = strips_per_block(hb, lq);
-  Params P{static_cast<const float*>(q),
-           static_cast<const float*>(k),
-           static_cast<const float*>(v),
-           static_cast<const float*>(pos_bias),
-           static_cast<const int32_t*>(kv_mask),
-           static_cast<const float*>(dmask),
-           static_cast<float*>(out),
-           batch, lq, lk, d, causal, spb,
-           d % 4 == 0 && aligned(k, 16) && aligned(v, 16),
-           lk % 2 == 0 && aligned(pos_bias, 8) && aligned(dmask, 8),
-           d % 2 == 0 && aligned(out, 8)};
-  const dim3 grid(hb, (strips_of(lq) + spb - 1) / spb);
-  const int threads = threads_of(spb);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (nd_of(d)) {
-    case 1: return static_cast<int>(launch<1>(P, grid, threads, smem, st));
-    case 2: return static_cast<int>(launch<2>(P, grid, threads, smem, st));
-    case 4: return static_cast<int>(launch<4>(P, grid, threads, smem, st));
-    case 8: return static_cast<int>(launch<8>(P, grid, threads, smem, st));
-    default: return static_cast<int>(launch<16>(P, grid, threads, smem, st));
-  }
+  return run<float>(q, k, v, pos_bias, kv_mask, dmask, out, hb, batch, lq, lk, d, causal,
+                    stream);
+}
+
+// As t5_attention_fwd, with q, k, v and out in bf16 (pos_bias and dmask f32).
+int t5_attention_fwd_bf16(const void* q, const void* k, const void* v, const void* pos_bias,
+                          const void* kv_mask, const void* dmask, void* out, int hb, int batch,
+                          int lq, int lk, int d, int causal, void* stream) {
+  return run<bf16>(q, k, v, pos_bias, kv_mask, dmask, out, hb, batch, lq, lk, d, causal,
+                   stream);
 }
 
 }  // extern "C"

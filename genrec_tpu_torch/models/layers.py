@@ -15,12 +15,15 @@ from torch.nn import functional as F
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
     """Flax ``nn.Dropout``: keep each element with probability 1 − rate and
-    divide the kept ones by 1 − rate; the identity at rate 0. The mask is
-    drawn from ``generator``, never the global RNG."""
+    divide the kept ones by 1 − rate, in ``x``'s dtype: as in Flax's
+    ``x / keep_prob``, 1 − rate is first rounded to that dtype (0.8984375 for
+    a bf16 ``x`` at rate 0.1); the identity at rate 0. The mask is drawn from
+    ``generator``, never the global RNG."""
     if rate == 0.0:
         return x
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
-    return torch.where(keep, x / (1.0 - rate), 0.0)
+    keep_prob = float(torch.tensor(1.0 - rate, dtype=x.dtype))
+    return torch.where(keep, x / keep_prob, 0.0)
 
 
 def _truncated_normal_(w: torch.Tensor, variance: float,

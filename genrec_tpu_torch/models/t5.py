@@ -30,6 +30,33 @@ generator raises. In ``.eval()`` (or at rate 0) no dropout operation runs.
 Gradients reach every parameter; the attention's backward is the fused
 kernel's (``ops/t5_attention.py``). The KV-cache path (``decode_step``) is
 for generation in eval mode only.
+
+``cfg.dtype`` is the computation dtype, float32 or bfloat16, placed as the
+reference's Flax modules place it; parameters stay f32 either way. At
+bfloat16 every projection (:class:`Dense`) casts its input and its f32
+weight to bf16 and returns bf16, as ``nn.Dense(dtype=bf16)`` does, and the
+shared embedding returns bf16 rows (:class:`Embed`); the relative-position
+bias stays f32 and reaches kernel #1 as f32; RMSNorm returns f32 (its input
+times the f32 rsqrt), so the next projection rounds it; the logits multiply
+the f32 hidden by the raw f32 table. The residual stream follows the
+promotion: bf16 where the stack's input is bf16 (TIGER's embeddings), f32
+where it is f32 (DenseT5's ``inputs_embeds``). The attention kernels take
+bf16 q/k/v and return bf16.
+
+Rematerialisation, as the reference's flags ask, with
+``torch.utils.checkpoint`` (non-reentrant) wherever gradients are recorded:
+``cfg.remat`` checkpoints each ``T5Block``, ``cfg.ffn_remat_dropout`` each
+``T5FeedForward``; ``cfg.attn_remat_dropout`` keeps the attention's
+(H·B, Lq, Lk) dropout mask out of the saved tensors, and kernel #2's caller
+draws it again from the generator's saved state (the reference checkpoints
+its XLA dropout-attention core instead, whose backward regenerates the mask
+from its key; the port's dropout attention runs through kernels #1 and #2,
+which keep no probabilities). Checkpoint replays the global RNGs only, and
+the port draws every mask from the caller's generator, so :func:`_remat`
+replays that generator's state in the recompute and then puts it back: the
+recompute draws the forward's masks, and the generator ends where the
+forward without remat leaves it. The math is unchanged: loss and gradients
+equal the forward without remat.
 """
 
 from __future__ import annotations
@@ -40,11 +67,14 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from genrec_tpu_torch.configs import T5ArchConfig
 from genrec_tpu_torch.models.layers import dropout as _dropout
 from genrec_tpu_torch.ops.attention import dot_product_attention
 from genrec_tpu_torch.ops.t5_attention import fused_t5_attention_flat, make_dropout_mask
+
+_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 _NEG_INF = -1e9
 
@@ -70,6 +100,75 @@ def _drop_rate(module: nn.Module, generator: Optional[torch.Generator]) -> float
         raise ValueError("training-mode dropout draws its masks from a torch.Generator: "
                          "pass generator=..., or call .eval()")
     return rate
+
+
+def compute_dtype(cfg: T5ArchConfig) -> Optional[torch.dtype]:
+    """The dtype the projections and the embedding cast to for ``cfg.dtype``
+    (the reference's ``_cdtype``): bf16, or None at float32, where they
+    compute in their parameters' dtype (f32; f64 for an f64 copy of a model,
+    as the smoke's witness steps make). Any other name raises."""
+    if cfg.dtype not in _DTYPES:
+        raise ValueError(f"T5ArchConfig.dtype must be one of {sorted(_DTYPES)}, got "
+                         f"{cfg.dtype!r}")
+    return _DTYPES[cfg.dtype]
+
+
+class Dense(nn.Linear):
+    """Bias-free projection computing in ``dtype`` as Flax's
+    ``nn.Dense(use_bias=False, dtype=...)``: the input and the f32 weight are
+    cast to ``dtype`` at each call, and the output is in ``dtype``; with
+    ``dtype`` None, ``nn.Linear``. The parameter stays f32."""
+
+    def __init__(self, d_in: int, d_out: int, dtype: Optional[torch.dtype]):
+        super().__init__(d_in, d_out, bias=False)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return F.linear(x.to(dt), self.weight.to(dt))
+
+
+class Embed(nn.Embedding):
+    """``nn.Embedding`` whose rows come out in ``dtype``: as Flax's
+    ``nn.Embed(dtype=...)``, the f32 table is cast to ``dtype`` and then
+    gathered, so the rows' gradients are summed in ``dtype`` too; with
+    ``dtype`` None, ``nn.Embedding``. The parameter stays f32."""
+
+    def __init__(self, num: int, dim: int, dtype: Optional[torch.dtype]):
+        super().__init__(num, dim)
+        self.compute_dtype = dtype
+
+    def forward(self, ids):
+        if self.compute_dtype is None:
+            return super().forward(ids)
+        return F.embedding(ids, self.weight.to(self.compute_dtype))
+
+
+def _remat(fn, generator: Optional[torch.Generator], *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are recomputed in the backward instead of kept. The
+    recompute runs with ``generator`` set back to its state at this call, so
+    that it draws the same dropout masks, and then puts the generator back
+    where it was; the global RNGs are not touched (nothing here draws from
+    them)."""
+    if generator is None:
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    state, calls = generator.get_state(), []
+
+    def run(*a):
+        if not calls:  # the forward
+            calls.append(1)
+            return fn(*a)
+        after = generator.get_state()
+        generator.set_state(state)
+        try:
+            return fn(*a)
+        finally:  # also when the recompute stops early
+            generator.set_state(after)
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def _normal_(t: torch.Tensor, std: float, generator: Optional[torch.Generator]):
@@ -146,10 +245,11 @@ class T5Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         inner = cfg.num_heads * cfg.d_kv
-        self.q = nn.Linear(cfg.d_model, inner, bias=False)
-        self.k = nn.Linear(cfg.d_model, inner, bias=False)
-        self.v = nn.Linear(cfg.d_model, inner, bias=False)
-        self.o = nn.Linear(inner, cfg.d_model, bias=False)
+        dt = compute_dtype(cfg)
+        self.q = Dense(cfg.d_model, inner, dt)
+        self.k = Dense(cfg.d_model, inner, dt)
+        self.v = Dense(cfg.d_model, inner, dt)
+        self.o = Dense(inner, cfg.d_model, dt)
 
     def reset_parameters(self, generator=None):
         c = self.cfg
@@ -183,7 +283,7 @@ class T5Attention(nn.Module):
         if bias is not None:
             logits = logits + bias
         probs = torch.softmax(logits, dim=-1).to(vh.dtype)
-        ctx = torch.matmul(probs, vh)
+        ctx = torch.matmul(probs.float(), vh.float()).to(vh.dtype)  # f32 sums
         return (ctx.reshape(b, h, num_beams, s, dkv)
                 .transpose(1, 2).reshape(bm, h, s, dkv))
 
@@ -204,11 +304,15 @@ class T5Attention(nn.Module):
                         .reshape(h * b, ll, dkv).contiguous())
 
             rate = _drop_rate(self, generator)
+            # attn_remat_dropout: the kernel's caller draws the mask and draws
+            # it again for the backward instead of keeping it
+            redraw = rate > 0.0 and c.attn_remat_dropout
             dmask = (make_dropout_mask(generator, h * b, lq, lk, rate, x.device)
-                     if rate > 0.0 else None)
+                     if rate > 0.0 and not redraw else None)
             of = fused_t5_attention_flat(flat(self.q(x), lq), flat(self.k(kv), lk),
                                          flat(self.v(kv), lk), h, bias.pos_bias,
-                                         bias.kv_mask, dropout_rate=rate, dropout_mask=dmask)
+                                         bias.kv_mask, dropout_rate=rate, dropout_mask=dmask,
+                                         dropout_generator=generator if redraw else None)
             out = of.view(h, b, lq, dkv).permute(1, 2, 0, 3).reshape(b, lq, inner)
             return self.o(out)
         qh = self._split_heads(self.q(x))
@@ -228,8 +332,9 @@ class T5FeedForward(nn.Module):
         if cfg.feed_forward_proj not in ("relu", "gelu", "gated-gelu"):
             raise ValueError(cfg.feed_forward_proj)
         self.cfg = cfg
-        self.wi = nn.Linear(cfg.d_model, cfg.d_ff, bias=False)
-        self.wo = nn.Linear(cfg.d_ff, cfg.d_model, bias=False)
+        dt = compute_dtype(cfg)
+        self.wi = Dense(cfg.d_model, cfg.d_ff, dt)
+        self.wo = Dense(cfg.d_ff, cfg.d_model, dt)
 
     def reset_parameters(self, generator=None):
         _normal_(self.wi.weight, self.cfg.d_model ** -0.5, generator)
@@ -270,7 +375,11 @@ class T5Block(nn.Module):
                                              kv_beams=cross_kv_beams, generator=generator),
                              rate, generator)
         h = self.ff_norm(x)
-        return x + _dropout(self.ff(h, generator), rate, generator)
+        if self.cfg.ffn_remat_dropout and torch.is_grad_enabled():
+            ff = _remat(self.ff, generator, h, generator)
+        else:
+            ff = self.ff(h, generator)
+        return x + _dropout(ff, rate, generator)
 
 
 def _extend_mask(attention_mask: torch.Tensor) -> torch.Tensor:
@@ -315,9 +424,11 @@ class T5Stack(nn.Module):
                 self_bias = self_bias + _extend_mask(attention_mask)
             cross_mask = _extend_mask(enc_mask) if enc_mask is not None else None
         x = _dropout(inputs_embeds, rate, generator)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
-            x = block(x, self_bias, enc_out, cross_mask,
-                      None if cross_kvs is None else cross_kvs[i], cross_kv_beams, generator)
+            args = (x, self_bias, enc_out, cross_mask,
+                    None if cross_kvs is None else cross_kvs[i], cross_kv_beams, generator)
+            x = _remat(block, generator, *args) if remat else block(*args)
         return _dropout(self.final_norm(x), rate, generator)
 
     def precompute_cross_kv(self, enc_out) -> Tuple[KV, ...]:
@@ -358,12 +469,10 @@ def _reset_stack_parameters(root: nn.Module, generator: Optional[torch.Generator
 class T5EncoderDecoder(nn.Module):
     def __init__(self, cfg: T5ArchConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.dtype != "float32":
-            raise NotImplementedError("the port computes in float32 only so far")
         if not cfg.tie_word_embeddings:
             raise NotImplementedError("untied lm_head not needed at parity scale")
         self.cfg = cfg
-        self.shared = nn.Embedding(cfg.vocab_size, cfg.d_model)
+        self.shared = Embed(cfg.vocab_size, cfg.d_model, compute_dtype(cfg))
         self.encoder = T5Stack(cfg, cfg.num_layers, is_decoder=False)
         self.decoder = T5Stack(cfg, cfg.num_decoder_layers, is_decoder=True)
         self.reset_parameters(generator)
@@ -427,8 +536,6 @@ class T5Encoder(nn.Module):
 
     def __init__(self, cfg: T5ArchConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.dtype != "float32":
-            raise NotImplementedError("the port computes in float32 only so far")
         self.cfg = cfg
         self.encoder = T5Stack(cfg, cfg.num_layers, is_decoder=False)
         _reset_stack_parameters(self, generator)

@@ -56,6 +56,10 @@ class ProfessionalAdapter(nn.Module):
         self.norm2 = nn.LayerNorm(d_model, eps=1e-6)
 
     def forward(self, student_hidden, bert_vecs, generator: Optional[torch.Generator] = None):
+        # Flax's nn.Dense without a dtype promotes a bf16 input and its f32
+        # kernel to f32: the adapter computes in its parameters' dtype at
+        # either compute dtype
+        student_hidden = student_hidden.to(self.q_proj.weight.dtype)
         kv = self.bert_proj(bert_vecs)  # (B, 5, d)
         drop = self.training and self.dropout > 0.0
         if drop and generator is None:
@@ -91,7 +95,9 @@ class TIGERPrefix(nn.Module):
         adapters = (self.adapter_lvl1, self.adapter_lvl2, self.adapter_lvl3)
         prefixes = [ad(embeds, prof, generator)
                     for ad, prof in zip(adapters, (prof_lvl1, prof_lvl2, prof_lvl3))]
-        inputs_embeds = torch.cat(prefixes + [embeds], dim=1)
+        # the prefixes (in the adapters' dtype) promote the embeddings, which
+        # are bf16 at a bf16 compute dtype
+        inputs_embeds = torch.cat(prefixes + [embeds.to(prefixes[0].dtype)], dim=1)
         if attention_mask is not None:
             ones = torch.ones((input_ids.shape[0], 3), dtype=attention_mask.dtype,
                               device=attention_mask.device)

@@ -163,7 +163,8 @@ def _xla_attention(q, k, v, bias=None, causal: bool = False, dropout_rate: float
     if dropout_rate > 0.0 and generator is not None:
         keep = torch.rand(probs.shape, generator=generator, device=probs.device) >= dropout_rate
         probs = torch.where(keep, probs / (1.0 - dropout_rate), 0.0)
-    return torch.matmul(probs.to(v.dtype), v).to(v.dtype)
+    # probs rounded to v's dtype, the products summed in the working type
+    return torch.matmul(_acc(probs.to(v.dtype)), _acc(v)).to(v.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -21,9 +21,22 @@ tensors lie and nothing else:
 - CPU tensors go to the plain versions :func:`t5_attention_reference` and
   :func:`t5_attention_bwd_reference`.
 
-f32 only, for now (bf16 later); the kernels take D ≤ 128. ``launches``,
-``bwd_launches`` and ``dbias_reduce_launches`` count kernel launches, so a
-run can show that its main path went through the kernels.
+q, k, v (and the output gradient) share one dtype, f32 or bf16, as the
+reference's kernels take them: ``out``, dq, dk and dv come back in that dtype,
+dbias in f32. ``pos_bias`` is cast to f32 as the reference casts it; the
+dropout mask is f32 at either dtype. A bf16 CUDA tensor goes to the kernels'
+bf16 entry points (q, k, v converted to f32 as they are loaded, the
+probabilities rounded to bf16 before P·V as the reference rounds them to v's
+dtype) or raises. The kernels take D ≤ 128. ``launches``, ``bwd_launches``
+(f32), ``bf16_launches``, ``bf16_bwd_launches`` (bf16) and
+``dbias_reduce_launches`` (either) count kernel launches, so a run can show
+that its main path went through the kernels.
+
+With ``dropout_generator`` in place of a mask, :func:`fused_t5_attention_flat`
+draws the mask itself and keeps only the generator's state for the backward,
+which draws the same mask again (the port's counterpart of the reference's
+``attn_remat_dropout``: the (H·B, Lq, Lk) mask is not kept between the
+forward and the backward).
 """
 
 from __future__ import annotations
@@ -41,9 +54,11 @@ _MAX_D = 128        # both kernels' feature steps: D padded to 8, 16, 32, 64 or 
 _KERNEL = "t5_attention_fwd"
 _BWD_KERNEL = "t5_attention_bwd"
 
-launches = 0      # forward kernel launches since import (or since a caller reset it)
-bwd_launches = 0  # backward kernel launches, likewise
-dbias_reduce_launches = 0  # the backward's dbias reduction kernel, likewise
+launches = 0      # f32 forward kernel launches since import (or since a caller reset it)
+bwd_launches = 0  # f32 backward kernel launches, likewise
+bf16_launches = 0      # bf16 forward kernel launches, likewise
+bf16_bwd_launches = 0  # bf16 backward kernel launches, likewise
+dbias_reduce_launches = 0  # the backward's dbias reduction kernel (either dtype), likewise
 
 _lib = None
 _bwd_lib = None
@@ -55,12 +70,14 @@ def load_kernel():
     if _lib is None:
         lib = _build.load(_KERNEL)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.t5_attention_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
-        lib.t5_attention_fwd.restype = ctypes.c_int
+        for fn in (lib.t5_attention_fwd, lib.t5_attention_fwd_bf16):
+            fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+            fn.restype = ctypes.c_int
         lib.t5_attention_fwd_smem_bytes.argtypes = [i, i]
         lib.t5_attention_fwd_smem_bytes.restype = ctypes.c_size_t
-        lib.t5_attention_fwd_blocks_per_sm.argtypes = [i, i, i]
-        lib.t5_attention_fwd_blocks_per_sm.restype = ctypes.c_int
+        for fn in (lib.t5_attention_fwd_blocks_per_sm, lib.t5_attention_fwd_bf16_blocks_per_sm):
+            fn.argtypes = [i, i, i]
+            fn.restype = ctypes.c_int
         lib.t5_attention_fwd_error_string.argtypes = [i]
         lib.t5_attention_fwd_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -73,37 +90,48 @@ def load_bwd_kernel():
     if _bwd_lib is None:
         lib = _build.load(_BWD_KERNEL)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.t5_attention_bwd.argtypes = [p] * 11 + [i] * 6 + [p]
-        lib.t5_attention_bwd.restype = ctypes.c_int
+        for fn in (lib.t5_attention_bwd, lib.t5_attention_bwd_bf16):
+            fn.argtypes = [p] * 11 + [i] * 6 + [p]
+            fn.restype = ctypes.c_int
         lib.t5_attention_dbias_reduce.argtypes = [p, p, i, i, i, p]
         lib.t5_attention_dbias_reduce.restype = ctypes.c_int
         lib.t5_attention_bwd_smem_bytes.argtypes = [i, i, i]
         lib.t5_attention_bwd_smem_bytes.restype = ctypes.c_size_t
-        lib.t5_attention_bwd_blocks_per_sm.argtypes = [i, i, i]
-        lib.t5_attention_bwd_blocks_per_sm.restype = ctypes.c_int
+        for fn in (lib.t5_attention_bwd_blocks_per_sm, lib.t5_attention_bwd_bf16_blocks_per_sm):
+            fn.argtypes = [i, i, i]
+            fn.restype = ctypes.c_int
         lib.t5_attention_bwd_error_string.argtypes = [i]
         lib.t5_attention_bwd_error_string.restype = ctypes.c_char_p
         _bwd_lib = lib
     return _bwd_lib
 
 
-def fwd_occupancy(lq: int, lk: int, d: int):
+def _bf16(dtype) -> bool:
+    return dtype == torch.bfloat16
+
+
+def fwd_occupancy(lq: int, lk: int, d: int, dtype=torch.float32):
     """(bytes of shared memory per block, blocks resident per SM) of the
-    forward kernel at (lq, lk, d) with a flat row per block, the latter from
-    the CUDA occupancy API."""
+    forward kernel for ``dtype`` I/O at (lq, lk, d) with a flat row per
+    block, the latter from the CUDA occupancy API."""
     lib = load_kernel()
-    n = lib.t5_attention_fwd_blocks_per_sm(lq, lk, d)
+    per_sm = lib.t5_attention_fwd_bf16_blocks_per_sm if _bf16(dtype) else \
+        lib.t5_attention_fwd_blocks_per_sm
+    n = per_sm(lq, lk, d)
     if n < 0:
         msg = lib.t5_attention_fwd_error_string(-n).decode()
         raise RuntimeError(f"t5_attention_fwd occupancy query failed: {msg} ({-n})")
     return lib.t5_attention_fwd_smem_bytes(lk, d), n
 
 
-def bwd_occupancy(lq: int, lk: int, d: int):
+def bwd_occupancy(lq: int, lk: int, d: int, dtype=torch.float32):
     """(bytes of shared memory per block, blocks resident per SM) of the
-    backward kernel at (lq, lk, d), the latter from the CUDA occupancy API."""
+    backward kernel for ``dtype`` I/O at (lq, lk, d), the latter from the
+    CUDA occupancy API."""
     lib = load_bwd_kernel()
-    n = lib.t5_attention_bwd_blocks_per_sm(lq, lk, d)
+    per_sm = lib.t5_attention_bwd_bf16_blocks_per_sm if _bf16(dtype) else \
+        lib.t5_attention_bwd_blocks_per_sm
+    n = per_sm(lq, lk, d)
     if n < 0:
         msg = lib.t5_attention_bwd_error_string(-n).decode()
         raise RuntimeError(f"t5_attention_bwd occupancy query failed: {msg} ({-n})")
@@ -119,6 +147,30 @@ def make_dropout_mask(generator: torch.Generator, hb: int, lq: int, lk: int, rat
     own ``make_dropout_mask`` rounds it to bf16 (1.109375 at rate 0.1)."""
     keep = torch.rand((hb, lq, lk), generator=generator, device=device) >= rate
     return torch.where(keep, 1.0 / (1.0 - rate), 0.0).to(torch.float32)
+
+
+class RedrawnMask:
+    """A dropout mask drawn from ``generator`` by :func:`make_dropout_mask`,
+    with the generator's state just before the draw, so that the same mask
+    can be drawn again later instead of being kept."""
+
+    def __init__(self, generator: torch.Generator, hb: int, lq: int, lk: int, rate: float,
+                 device=None):
+        self.generator, self.args = generator, (hb, lq, lk, rate, device)
+        self.state = generator.get_state()
+
+    def draw(self) -> torch.Tensor:
+        """The mask, advancing the generator as one make_dropout_mask call does."""
+        return make_dropout_mask(self.generator, *self.args)
+
+    def redraw(self) -> torch.Tensor:
+        """The same mask again, the generator left where it was found."""
+        after = self.generator.get_state()
+        self.generator.set_state(self.state)
+        try:
+            return make_dropout_mask(self.generator, *self.args)
+        finally:
+            self.generator.set_state(after)
 
 
 def _acc(t):
@@ -150,11 +202,13 @@ def t5_attention_reference(qf, kf, vf, h: int, pos_bias=None, kv_mask=None, *,
                            causal: bool = False, dropout_mask=None):
     """Plain PyTorch version of the forward kernel, in the flat (H·B, L, D)
     layout: the probabilities of :func:`_probs`, then the multiplicative
-    dropout mask, then ·V."""
+    dropout mask, then rounded to v's dtype and ·V with the products summed
+    in the working type (the reference's ``preferred_element_type=f32``);
+    out in q's dtype."""
     p = _probs(qf, kf, h, pos_bias, kv_mask, causal)
     if dropout_mask is not None:
         p = p * _acc(dropout_mask)
-    return torch.bmm(p.to(vf.dtype), vf).to(qf.dtype)
+    return torch.bmm(_acc(p.to(vf.dtype)), _acc(vf)).to(qf.dtype)
 
 
 def _bwd_scores(qf, kf, vf, h: int, pos_bias, kv_mask, do, causal: bool, dropout_mask):
@@ -175,7 +229,10 @@ def t5_attention_bwd_reference(qf, kf, vf, h: int, pos_bias, kv_mask, do, *,
     """Plain PyTorch version of the backward kernel (the reference's
     ``_bwd_kernel``): recompute p, then dp = (do·vᵀ)·dm,
     ds = p·(dp − rowsum(dp·p)), dq = ds·k, dk = dsᵀ·q, dv = (p·dm)ᵀ·do and
-    dbias = Σ_b ds (None unless ``pos_bias`` is given and ``need_dbias``)."""
+    dbias = Σ_b ds (None unless ``pos_bias`` is given and ``need_dbias``),
+    all in the working type from the inputs cast to it (as the reference
+    casts bf16 inputs to f32); dq, dk and dv are rounded to the input dtype
+    at the end, dbias stays in the working type."""
     hb, lq, _ = qf.shape
     lk = kf.shape[1]
     ds, pd = _bwd_scores(qf, kf, vf, h, pos_bias, kv_mask, do, causal, dropout_mask)
@@ -185,7 +242,7 @@ def t5_attention_bwd_reference(qf, kf, vf, h: int, pos_bias, kv_mask, do, *,
     dbias = None
     if pos_bias is not None and need_dbias:
         dbias = ds.view(h, hb // h, lq, lk).sum(dim=1)
-    return dq, dk, dv, dbias
+    return dq.to(qf.dtype), dk.to(kf.dtype), dv.to(vf.dtype), dbias
 
 
 def dbias_reduce_reference(partial):
@@ -197,12 +254,23 @@ def dbias_reduce_reference(partial):
     return out
 
 
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _f32(pos_bias):
+    """The bias as the kernels take it: f32, as the reference casts it."""
+    return None if pos_bias is None else pos_bias.to(torch.float32)
+
+
 def _check(qf, kf, vf, h, pos_bias, kv_mask, dmask, do=None):
     for name, t in (("qf", qf), ("kf", kf), ("vf", vf)):
         if t.dim() != 3:
             raise ValueError(f"{name} must be (H*B, L, D), got {tuple(t.shape)}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if qf.dtype not in _DTYPES:
+        raise TypeError(f"qf must be float32 or bfloat16, got {qf.dtype}")
+    if kf.dtype != qf.dtype or vf.dtype != qf.dtype:
+        raise TypeError(f"q, k and v must share one dtype, got {qf.dtype}, {kf.dtype} and "
+                        f"{vf.dtype}")
     hb, lq, d = qf.shape
     lk = kf.shape[1]
     if h <= 0 or hb % h != 0:
@@ -215,8 +283,6 @@ def _check(qf, kf, vf, h, pos_bias, kv_mask, dmask, do=None):
         if tuple(pos_bias.shape) != (h, lq, lk):
             raise ValueError(f"pos_bias must be ({h}, {lq}, {lk}), got "
                              f"{tuple(pos_bias.shape)}")
-        if pos_bias.dtype != torch.float32:
-            raise TypeError(f"pos_bias must be float32, got {pos_bias.dtype}")
     if kv_mask is not None:
         if tuple(kv_mask.shape) != (b, lk):
             raise ValueError(f"kv_mask must be ({b}, {lk}), got {tuple(kv_mask.shape)}")
@@ -232,8 +298,8 @@ def _check(qf, kf, vf, h, pos_bias, kv_mask, dmask, do=None):
         if tuple(do.shape) != (hb, lq, d):
             raise ValueError(f"the output gradient must be ({hb}, {lq}, {d}), got "
                              f"{tuple(do.shape)}")
-        if do.dtype != torch.float32:
-            raise TypeError(f"the output gradient must be float32, got {do.dtype}")
+        if do.dtype != qf.dtype:
+            raise TypeError(f"the output gradient must be {qf.dtype} as q is, got {do.dtype}")
     given = [t for t in (qf, kf, vf, pos_bias, kv_mask, dmask, do) if t is not None]
     if len({t.device for t in given}) != 1:
         raise ValueError(f"all tensors must lie on one device, got {[t.device for t in given]}")
@@ -248,7 +314,7 @@ def _ptr(t):
 
 
 def _launch(qf, kf, vf, h, pos_bias, kv_mask, dmask, causal):
-    global launches
+    global launches, bf16_launches
     hb, lq, d = qf.shape
     lk = kf.shape[1]
     if d > _MAX_D:
@@ -262,13 +328,16 @@ def _launch(qf, kf, vf, h, pos_bias, kv_mask, dmask, causal):
     mask32 = None if kv_mask is None else kv_mask.to(torch.int32).contiguous()
     with torch.cuda.device(qf.device):
         stream = torch.cuda.current_stream(qf.device).cuda_stream
-        err = lib.t5_attention_fwd(
-            _ptr(qf), _ptr(kf), _ptr(vf), _ptr(pos_bias), _ptr(mask32), _ptr(dmask),
-            _ptr(out), hb, hb // h, lq, lk, d, int(causal), stream)
+        fwd = lib.t5_attention_fwd_bf16 if _bf16(qf.dtype) else lib.t5_attention_fwd
+        err = fwd(_ptr(qf), _ptr(kf), _ptr(vf), _ptr(pos_bias), _ptr(mask32), _ptr(dmask),
+                  _ptr(out), hb, hb // h, lq, lk, d, int(causal), stream)
     if err != 0:
         msg = lib.t5_attention_fwd_error_string(err).decode()
-        raise RuntimeError(f"t5_attention_fwd launch failed: {msg} ({err})")
-    launches += 1
+        raise RuntimeError(f"t5_attention_fwd launch failed ({qf.dtype}): {msg} ({err})")
+    if _bf16(qf.dtype):
+        bf16_launches += 1
+    else:
+        launches += 1
     return out
 
 
@@ -289,7 +358,7 @@ def _launch_dbias_reduce(partial):
 
 
 def _launch_bwd(qf, kf, vf, h, pos_bias, kv_mask, dmask, do, causal, need_dbias):
-    global bwd_launches
+    global bwd_launches, bf16_bwd_launches
     hb, lq, d = qf.shape
     lk = kf.shape[1]
     if d > _MAX_D:
@@ -308,14 +377,17 @@ def _launch_bwd(qf, kf, vf, h, pos_bias, kv_mask, dmask, do, causal, need_dbias)
     mask32 = None if kv_mask is None else kv_mask.to(torch.int32).contiguous()
     with torch.cuda.device(qf.device):
         stream = torch.cuda.current_stream(qf.device).cuda_stream
-        err = lib.t5_attention_bwd(
-            _ptr(qf), _ptr(kf), _ptr(vf), _ptr(pos_bias), _ptr(mask32), _ptr(dmask),
-            _ptr(do), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(partial), hb, b, lq, lk, d,
-            int(causal), stream)
+        bwd = lib.t5_attention_bwd_bf16 if _bf16(qf.dtype) else lib.t5_attention_bwd
+        err = bwd(_ptr(qf), _ptr(kf), _ptr(vf), _ptr(pos_bias), _ptr(mask32), _ptr(dmask),
+                  _ptr(do), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(partial), hb, b, lq, lk, d,
+                  int(causal), stream)
     if err != 0:
         msg = lib.t5_attention_bwd_error_string(err).decode()
-        raise RuntimeError(f"t5_attention_bwd launch failed: {msg} ({err})")
-    bwd_launches += 1
+        raise RuntimeError(f"t5_attention_bwd launch failed ({qf.dtype}): {msg} ({err})")
+    if _bf16(qf.dtype):
+        bf16_bwd_launches += 1
+    else:
+        bwd_launches += 1
     dbias = None if partial is None else _launch_dbias_reduce(partial)
     return dq, dk, dv, dbias
 
@@ -324,6 +396,7 @@ def t5_attention_fwd(qf, kf, vf, h: int, pos_bias=None, kv_mask=None, *,
                      causal: bool = False, dropout_mask=None):
     """The forward on its own (no autograd): the kernel on CUDA tensors, the
     plain version on CPU tensors."""
+    pos_bias = _f32(pos_bias)
     _check(qf, kf, vf, h, pos_bias, kv_mask, dropout_mask)
     if qf.device.type == "cpu":
         return t5_attention_reference(qf, kf, vf, h, pos_bias, kv_mask, causal=causal,
@@ -336,6 +409,7 @@ def t5_attention_bwd(qf, kf, vf, h: int, pos_bias, kv_mask, do, *, causal: bool 
     """The backward on its own: (dq, dk, dv, dbias) from the output gradient
     ``do`` (H·B, Lq, D), the kernels on CUDA tensors, the plain version on CPU
     tensors. dbias is None unless ``pos_bias`` is given and ``need_dbias``."""
+    pos_bias = _f32(pos_bias)
     _check(qf, kf, vf, h, pos_bias, kv_mask, dropout_mask, do)
     if qf.device.type == "cpu":
         return t5_attention_bwd_reference(qf, kf, vf, h, pos_bias, kv_mask, do, causal=causal,
@@ -360,37 +434,56 @@ def t5_attention_dbias_reduce(partial):
 
 class _FusedT5Attention(torch.autograd.Function):
     """Forward kernel #1 and backward kernel #2 (the reference's custom VJP
-    ``_fused``); the masks and the non-tensor arguments get no gradient."""
+    ``_fused``); the masks and the non-tensor arguments get no gradient.
+    dq, dk and dv come back in the inputs' dtype, dbias in f32. With a
+    :class:`RedrawnMask` ``redraw`` in place of ``dmask``, the forward draws
+    the mask and the backward draws it again: it is not saved."""
 
     @staticmethod
-    def forward(ctx, qf, kf, vf, pos_bias, kv_mask, dmask, h, causal):
+    def forward(ctx, qf, kf, vf, pos_bias, kv_mask, dmask, h, causal, redraw):
+        if redraw is not None:
+            dmask = redraw.draw()
         out = t5_attention_fwd(qf, kf, vf, h, pos_bias, kv_mask, causal=causal,
                                dropout_mask=dmask)
-        ctx.save_for_backward(qf, kf, vf, pos_bias, kv_mask, dmask)
-        ctx.h, ctx.causal = h, causal
+        ctx.save_for_backward(qf, kf, vf, pos_bias, kv_mask, None if redraw else dmask)
+        ctx.h, ctx.causal, ctx.redraw = h, causal, redraw
         return out
 
     @staticmethod
     def backward(ctx, do):
         qf, kf, vf, pos_bias, kv_mask, dmask = ctx.saved_tensors
+        if ctx.redraw is not None:
+            dmask = ctx.redraw.redraw()
         # the gradient arrives through the caller's view/permute/reshape
         dq, dk, dv, dbias = t5_attention_bwd(
             qf, kf, vf, ctx.h, pos_bias, kv_mask, do.contiguous(), causal=ctx.causal,
             dropout_mask=dmask, need_dbias=ctx.needs_input_grad[3])
-        return dq, dk, dv, dbias, None, None, None, None
+        return dq, dk, dv, dbias, None, None, None, None, None
 
 
 def fused_t5_attention_flat(qf, kf, vf, h: int, pos_bias=None, kv_mask=None, *,
                             causal: bool = False, dropout_rate: float = 0.0,
-                            dropout_mask: Optional[torch.Tensor] = None):
-    """Flat-layout entry: qf/kf/vf (H·B, L, D) f32, head dimension slowest.
+                            dropout_mask: Optional[torch.Tensor] = None,
+                            dropout_generator: Optional[torch.Generator] = None):
+    """Flat-layout entry: qf/kf/vf (H·B, L, D), f32 or bf16, head dimension
+    slowest; out in their dtype. ``pos_bias`` is cast to f32.
     ``dropout_mask`` (H·B, Lq, Lk) f32 holds {0, 1/(1−rate)} (see
-    :func:`make_dropout_mask`) and is used only when ``dropout_rate > 0``.
-    Differentiable in q, k, v and ``pos_bias``."""
-    if dropout_rate > 0.0 and dropout_mask is None:
-        raise ValueError("dropout_rate > 0 requires dropout_mask")
+    :func:`make_dropout_mask`) and is used only when ``dropout_rate > 0``;
+    or, with ``dropout_generator`` instead, the mask is drawn from it here by
+    :func:`make_dropout_mask` and drawn again in the backward rather than
+    kept (:class:`RedrawnMask`). Differentiable in q, k, v and ``pos_bias``."""
+    redraw = None
+    if dropout_rate > 0.0:
+        if (dropout_mask is None) == (dropout_generator is None):
+            raise ValueError("dropout_rate > 0 requires one of dropout_mask and "
+                             "dropout_generator")
+        if dropout_generator is not None:
+            hb, lq, _ = qf.shape
+            redraw = RedrawnMask(dropout_generator, hb, lq, kf.shape[1], dropout_rate,
+                                 qf.device)
     dmask = dropout_mask if dropout_rate > 0.0 else None
-    return _FusedT5Attention.apply(qf, kf, vf, pos_bias, kv_mask, dmask, h, causal)
+    return _FusedT5Attention.apply(qf, kf, vf, _f32(pos_bias), kv_mask, dmask, h, causal,
+                                   redraw)
 
 
 def _hbld(x):
