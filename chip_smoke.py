@@ -117,11 +117,27 @@ which asserts; any failure exits non-zero and prints no result:
     ``attn_remat_dropout`` and ``ffn_remat_dropout`` and with all three,
     against the plain step from same-seeded CUDA generators (loss and
     gradients within 1e-6), with each step's peak memory and device ms;
-17. print one JSON line of kernel records, the card line, and last the
+17. ``[tp]``, right after 12: dense tensor parallelism over the mesh's
+    'model' axis with two gloo ranks on ``cuda:0`` (this script started
+    again as ``chip_smoke.py --tp-rank <rank> <world> <rdv> <out>``; the
+    parent builds the kernels first) on the 1 × 2 mesh: a B=256 TIGER step
+    at dropout 0.1, 2 heads and 128 of d_ff a rank, against the one-device
+    step (loss and every gathered gradient within the backward's bound;
+    kernels #1 and #2 6 + 6 times a rank at (2·256, L, 16)); one epoch of
+    ``tiger_pipeline.train`` whose loss equals 6's first within rtol 2e-4,
+    its checkpoint served whole on one device by ``tiger_model_fn`` with
+    the lists of 12's one-device epoch checkpoint; the parity SASRec's
+    700-row table cut in two against the whole table over 2 SGD steps, a
+    701-row table left whole; a profiled step a rank. Any rank's failure
+    fails the smoke;
+18. ``[profile-dir]``: ``tiger_pipeline.train`` for 2 epochs with
+    ``trainer.profile_dir``: one trace file, the second epoch's range only,
+    #1 and #2 at 6 kernel events a step of that epoch, the reduction at 4;
+19. print one JSON line of kernel records, the card line, and last the
     ``{"ok": true, "device": ...}`` line.
 
-Kernel launch counts are set to 0 just before each of the paths 5-13, 15
-and 16 and read just after, and must equal what the path ran.
+Kernel launch counts are set to 0 just before each of the paths 5-13 and
+15-18 and read just after, and must equal what the path ran.
 
 TF32 is off for matmuls and cuDNN throughout, so f32 means f32, and a bf16
 GEMM sums in f32 (``allow_bf16_reduced_precision_reduction`` off), as XLA's
@@ -130,6 +146,7 @@ does.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -185,6 +202,17 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def cpu_line() -> str:
+    """The host CPU's model and the instruction set torch's CPU kernels use
+    (the CPU's bf16 results depend on it)."""
+    name = "unknown"
+    with contextlib.suppress(OSError):
+        with open("/proc/cpuinfo") as f:
+            name = next((ln.split(":", 1)[1].strip() for ln in f
+                         if ln.startswith("model name")), name)
+    return f"{name}, {torch.backends.cpu.get_cpu_capability()}, {torch.get_num_threads()} threads"
 
 
 def cuda_ms(fn, iters: int, windows: int = 5) -> float:
@@ -2437,6 +2465,359 @@ def phase_dist(tmp, tr, te, train):
     return out
 
 
+TP_WORLD = 2          # [tp]: gloo ranks sharing cuda:0, the 1 x 2 mesh
+TP_SAS_STEPS = 2      # [tp]: parity SASRec SGD steps on the cut table
+TP_TIMEOUT_S = 600    # [tp]: both ranks must end within this
+
+
+def _tp_cfg(tmp, name):
+    """``TIGERConfig()`` (trie) on the 1 × 2 mesh at batch 256, one epoch,
+    replicated datasets: the global batches of ``[train]``'s first epoch."""
+    from genrec_tpu_torch.configs import MeshConfig, TIGERConfig
+
+    base = TIGERConfig(constrained_decoding="trie")
+    return dataclasses.replace(base, mesh=MeshConfig(data_axis=1, model_axis=TP_WORLD),
+                               trainer=dataclasses.replace(
+                                   base.trainer, epochs=1, batch_size=BATCH,
+                                   eval_batch_size=BATCH, ckpt_dir=os.path.join(tmp, name),
+                                   seed=0, shard_dataset=False))
+
+
+class _RecordShapes:
+    """Inside the block, the q and k shapes of each call of kernel #1's and
+    #2's wrappers, appended to ``calls`` as (name, q shape, k shape)."""
+
+    def __init__(self, ta, calls):
+        self.ta, self.calls = ta, calls
+
+    def __enter__(self):
+        ta, calls = self.ta, self.calls
+        self.fwd, self.bwd = ta.t5_attention_fwd, ta.t5_attention_bwd
+
+        def wrap(name, fn):
+            def call(qf, kf, *a, **kw):
+                calls.append((name, tuple(qf.shape), tuple(kf.shape)))
+                return fn(qf, kf, *a, **kw)
+            return call
+
+        ta.t5_attention_fwd, ta.t5_attention_bwd = wrap("fwd", self.fwd), wrap("bwd", self.bwd)
+
+    def __exit__(self, *exc):
+        self.ta.t5_attention_fwd, self.ta.t5_attention_bwd = self.fwd, self.bwd
+
+
+def _tp_sasrec(mesh):
+    """The parity SASRec at ``SASRecConfig()`` on a 699-item catalog (a
+    700-row table, 350 rows a rank) against the same model whole on this
+    rank: ``TP_SAS_STEPS`` SGD steps of ``train_loss`` (dropout and
+    negatives from same-seeded CUDA generators), losses, gathered gradients
+    and parameters; and the specs of a 701-row table."""
+    from genrec_tpu_torch.configs import SASRecConfig
+    from genrec_tpu_torch.models.sasrec import SASRec, train_loss
+    from genrec_tpu_torch.parallel.auto import param_shardings
+    from genrec_tpu_torch.parallel.tensor import gather_state, shard_model_
+
+    cfg = SASRecConfig()
+    items = N_ITEMS - 1
+    rng = np.random.default_rng(5)
+    x = rng.integers(1, items + 1, size=(cfg.trainer.batch_size, cfg.max_len))
+    x[:8, :5] = 0
+    t = np.where(x == 0, 0, rng.integers(1, items + 1, size=x.shape))
+    x, t = torch.from_numpy(x).cuda(), torch.from_numpy(t).cuda()
+    runs = {}
+    for name in ("whole", "cut"):
+        model = SASRec(items, cfg, generator=torch.Generator().manual_seed(0)).cuda().train()
+        specs = param_shardings(mesh, model) if name == "cut" else {}
+        cut = shard_model_(model, mesh, specs)
+        # SGD: an update proportional to the gradient (Adam's first steps are
+        # ±lr wherever a gradient is rounding noise)
+        opt = torch.optim.SGD(model.parameters(), lr=0.5)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        losses, grads = [], []
+        for _ in range(TP_SAS_STEPS):
+            opt.zero_grad()
+            loss, _ = train_loss(model, x, t, gen, cfg, items)
+            loss.backward()
+            grads.append(gather_state({k: p.grad for k, p in model.named_parameters()},
+                                      mesh, specs))
+            opt.step()
+            losses.append(loss.item())
+        params = gather_state({k: p.detach() for k, p in model.named_parameters()}, mesh, specs)
+        runs[name] = (losses, grads, params, sorted(cut), model.item_emb.weight.shape[0])
+    (lw, gw, pw, _, _), (lc, gc, pc, cut, rows) = runs["whole"], runs["cut"]
+    worst = (0.0, "")
+    for step in range(TP_SAS_STEPS):
+        assert abs(lc[step] - lw[step]) <= BWD_REL * abs(lw[step]) + TOL, (step, lc, lw)
+        for k, g in gw[step].items():
+            err, scale = (gc[step][k] - g).abs().max().item(), g.abs().max().item()
+            assert err <= BWD_REL * scale + TOL, f"step {step} {k}: {err} (max {scale})"
+            worst = max(worst, (err, f"step {step} {k}"))
+    for k, p in pw.items():
+        err = (pc[k] - p).abs().max().item()
+        assert err <= BWD_REL * p.abs().max().item() + TOL, f"{k}: {err}"
+    whole_701 = param_shardings(mesh, SASRec(N_ITEMS, cfg))
+    return dict(losses=lc, whole_losses=lw, cut=cut, rows=rows, worst=worst,
+                specs_701=whole_701["item_emb.weight"])
+
+
+def tp_rank_main(rank: int, world: int, rdv: str, out: str) -> int:
+    """One ``[tp]`` rank (``chip_smoke.py --tp-rank <rank> <world> <rdv>
+    <out>``): joins a gloo group of ``world`` ranks on ``cuda:0`` through
+    the ``file://`` rendezvous ``rdv`` and runs, on the 1 × ``world`` mesh,
+    a TIGER step (counts, shapes and gathered gradients), a profiled step,
+    one epoch of ``tiger_pipeline.train`` (the counted path) and
+    :func:`_tp_sasrec`; saves what it found to ``<out>/rank<rank>.pt`` for
+    the parent to hold."""
+    import torch.distributed as dist
+
+    from genrec_tpu_torch.ops import t5_attention as ta
+    from genrec_tpu_torch.parallel.auto import dp_shardings
+    from genrec_tpu_torch.parallel.mesh import initialize_multihost
+    from genrec_tpu_torch.parallel.tensor import gather_state
+    from genrec_tpu_torch.pipelines import tiger_pipeline
+
+    set_precision()
+    dev = initialize_multihost("file://" + rdv, world, rank, backend="gloo")
+    try:
+        data = torch.load(os.path.join(out, "data.pt"), weights_only=False)
+        tr, te, tmp = data["tr"], data["te"], data["tmp"]
+        cfg = _tp_cfg(tmp, "tp_step_ckpt")
+        mesh = dp_shardings(cfg.mesh)
+        res = {"backend": dist.get_backend(), "device": str(dev),
+               "model_index": mesh.index("model")}
+        trainer = tiger_pipeline.build_trainer(cfg, tr, te, device="cuda", mesh=mesh)
+        res["cut"] = sorted(trainer._cut)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        batch = trainer.gather(trainer.train_data, torch.arange(BATCH, device="cuda"))
+        calls = []
+        with _RecordShapes(ta, calls):
+            ta.launches = ta.bwd_launches = ta.dbias_reduce_launches = 0
+            sl, vl = trainer.train_step(batch, gen)
+            torch.cuda.synchronize()
+            res["step_launches"] = (ta.launches, ta.bwd_launches, ta.dbias_reduce_launches)
+        res["step_calls"] = calls
+        res["step_loss"] = sl.item() / vl.item()
+        grads = gather_state({k: p.grad for k, p in trainer.model.named_parameters()}, mesh,
+                             trainer._specs)
+        if rank == 0:
+            res["step_grads"] = {k: v.cpu() for k, v in grads.items()}
+        res["prof"] = profile_window(
+            f"[tp] rank {rank}: one TIGER train step (B={BATCH}, dropout 0.1, 2 of 4 heads and "
+            f"128 of d_ff 256, gloo on the card)", lambda: trainer.train_step(batch, gen), top_n=6)
+        del trainer, batch, grads
+        torch.cuda.empty_cache()
+
+        # ---- the [tp] path: counts at 0 just before, read just after ----
+        ta.launches = ta.bwd_launches = ta.dbias_reduce_launches = 0
+        art = tiger_pipeline.train(_tp_cfg(tmp, "tp_ckpt"), tr, te, device="cuda")
+        torch.cuda.synchronize()
+        res["epoch_launches"] = (ta.launches, ta.bwd_launches, ta.dbias_reduce_launches)
+        # ---- end ----
+        res["epoch_loss"] = art.result.train_losses[0]
+        res["epoch_steps"] = art.result.steps_run
+        res["epoch_s"] = art.result.phase_seconds["train"]
+        res["sasrec"] = _tp_sasrec(mesh)
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _run_tp_ranks(out: str) -> list:
+    """Start ``TP_WORLD`` rank processes of this script on the card, wait
+    for all (a rank that fails ends the others at once: they would wait in
+    a collective), relay their ``[`` lines and return their results."""
+    logs = [os.path.join(out, f"rank{r}.log") for r in range(TP_WORLD)]
+    procs = []
+    for r, log in enumerate(logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r), str(TP_WORLD),
+                 os.path.join(out, "rendezvous"), out], cwd=HERE, stdout=f,
+                stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + TP_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        with open(log) as f:
+            text = f.read()
+        for line in text.splitlines():
+            if line.startswith("["):
+                print(f"[tp] rank {r}: {line}")
+        assert p.returncode == 0, f"[tp] rank {r} exited {p.returncode}:\n{text[-4000:]}"
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(TP_WORLD)]
+
+
+def phase_tp(tmp, tr, te, train):
+    """``[tp]``: dense tensor parallelism over the 'model' axis on the card.
+    Two gloo ranks share ``cuda:0`` (NCCL refuses two ranks on one card) on
+    the 1 × 2 mesh, each with 2 of ``TIGERConfig()``'s 4 heads (kernels #1
+    and #2 at (2·256, L, 16)) and 128 of its 256 d_ff: a B=256 step at
+    dropout 0.1 against the one-device step from same-seeded CUDA
+    generators (loss and every gathered gradient within the backward's
+    bound, 6 + 6 launches a rank); one epoch of ``tiger_pipeline.train``
+    whose loss equals ``[train]``'s first within rtol 2e-4, and whose
+    checkpoint, loaded whole on one device, serves ``tiger_model_fn``
+    requests with the lists of ``[dist]``'s one-device epoch checkpoint;
+    the parity SASRec's 700-row table cut in two (:func:`_tp_sasrec`); a
+    profiled step a rank. Gloo moves the tensors through the host, so the
+    times say what one card does with two ranks, not what TP costs over
+    NVLink."""
+    from genrec_tpu_torch.data.datasets import num_batches
+    from genrec_tpu_torch.ops import t5_attention as ta
+    from genrec_tpu_torch.pipelines import tiger_pipeline
+    from genrec_tpu_torch.serving.model_fn import tiger_model_fn
+
+    t0 = time.perf_counter()
+    ta.load_kernel()  # built here: the ranks load the same libraries
+    ta.load_bwd_kernel()
+    out = os.path.join(tmp, "tp")
+    os.makedirs(out)
+    torch.save({"tr": tr, "te": te, "tmp": tmp}, os.path.join(out, "data.pt"))
+
+    single = tiger_pipeline.build_trainer(_tp_cfg(tmp, "tp_single_ckpt"), tr, te, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = single.gather(single.train_data, torch.arange(BATCH, device="cuda"))
+    sl, vl = single.train_step(batch, gen)
+    ref_loss, ref_grads = sl.item() / vl.item(), _grads_of(single)
+    del single, batch
+
+    ranks = _run_tp_ranks(out)
+
+    steps, val_batches = num_batches(len(tr.input_ids), BATCH), num_batches(len(te.input_ids),
+                                                                            BATCH)
+    assert [r["backend"] for r in ranks] == ["gloo"] * TP_WORLD, ranks
+    assert [r["device"] for r in ranks] == ["cuda:0"] * TP_WORLD
+    assert sorted(r["model_index"] for r in ranks) == list(range(TP_WORLD))
+    cfg = _tp_cfg(tmp, "")
+    a = cfg.arch
+    n_attn = a.num_layers + 2 * a.num_decoder_layers
+    for r, res in enumerate(ranks):
+        assert len(res["cut"]) == 4 * n_attn + 2 * (a.num_layers + a.num_decoder_layers), res["cut"]
+        assert res["step_launches"] == (6, 6, 4), res["step_launches"]
+        hb = a.num_heads // TP_WORLD * BATCH
+        for name, q, k in res["step_calls"]:
+            assert q[0] == hb and q[2] == a.d_kv and k[0] == hb, (name, q, k)
+        print(f"[tp] rank {r} (model index {res['model_index']}, {res['backend']} on "
+              f"{res['device']}): {len(res['cut'])} tensors cut; one step: #1/#2/reduce "
+              f"launches {res['step_launches']}, kernel calls (q, k): "
+              + ", ".join(f"{n} {q}/{k}" for n, q, k in res["step_calls"]))
+    loss, grads = ranks[0]["step_loss"], ranks[0]["step_grads"]
+    worst = (0.0, "")
+    for k, g in ref_grads.items():
+        g = g.cpu()
+        err, scale = (grads[k] - g).abs().max().item(), g.abs().max().item()
+        assert err <= BWD_REL * scale + TOL, f"[tp] {k}: grad vs single {err} (max {scale})"
+        worst = max(worst, (err, k))
+    for res in ranks:
+        assert abs(res["step_loss"] - ref_loss) <= BWD_REL * abs(ref_loss) + TOL, (
+            res["step_loss"], ref_loss)
+    print(f"[tp] TIGER B={BATCH} dropout {cfg.arch.dropout_rate} on the 1 x {TP_WORLD} mesh "
+          f"against the one-device step (same batch, generator seed and weights): loss "
+          f"{loss:.7f} vs {ref_loss:.7f} (|diff| {abs(loss - ref_loss):.2e}), {len(grads)} "
+          f"gathered gradients, largest |diff| {worst[0]:.3e} ({worst[1]})")
+
+    want = train["train_losses"][0]
+    for r, res in enumerate(ranks):
+        fwd, bwd, red = res["epoch_launches"]
+        assert res["epoch_steps"] == steps, res["epoch_steps"]
+        assert (fwd, bwd, red) == (6 * steps + 6 * val_batches, 6 * steps, 4 * steps), (
+            fwd, bwd, red)
+        assert abs(res["epoch_loss"] - want) <= 2e-4 * abs(want), (res["epoch_loss"], want)
+        print(f"[tp] rank {r}: tiger_pipeline.train, 1 epoch ({steps} steps, {res['epoch_s']:.2f} "
+              f"s): train loss {res['epoch_loss']:.7f} against [train]'s first epoch {want:.7f} "
+              f"(rel {abs(res['epoch_loss'] - want) / want:.2e}); launches #1 {fwd}, #2 {bwd}, "
+              f"reduce {red}")
+
+    codes_path = os.path.join(tmp, "codes", "course_rqvae_codes.npy")
+    fns = {name: tiger_model_fn(os.path.join(tmp, ckpt), codes_path, device="cuda")
+           for name, ckpt in (("tp", "tp_ckpt"), ("dist", "dist_ckpt"))}
+    before = ta.launches
+    for hist in APP_HISTORIES:
+        lists = {name: fn(hist, TOP_K) for name, fn in fns.items()}
+        assert lists["tp"] == lists["dist"], lists
+        print(f"[tp] the TP checkpoint on one device, history of {len(hist)} items -> "
+              f"{lists['tp']} (the [dist] epoch's checkpoint: the same)")
+    torch.cuda.synchronize()
+    assert ta.launches - before == 2 * len(fns) * len(APP_HISTORIES), ta.launches - before
+
+    for r, res in enumerate(ranks):
+        s = res["sasrec"]
+        assert s["rows"] == N_ITEMS // TP_WORLD and s["cut"] == ["item_emb.weight"], s
+        assert s["specs_701"] == (), s["specs_701"]
+        print(f"[tp] rank {r}: parity SASRec, 699 items (700 rows, {s['rows']} a rank), "
+              f"{TP_SAS_STEPS} SGD steps: losses {[round(x, 7) for x in s['losses']]} against "
+              f"whole {[round(x, 7) for x in s['whole_losses']]}, largest gradient |diff| "
+              f"{s['worst'][0]:.3e} ({s['worst'][1]}); 700 items (701 rows): table whole")
+    prof = [res["prof"] for res in ranks]
+    line = "; ".join(f"rank {r} {p[0] / 1e3:.3f} ms device of {p[1] / 1e3:.3f} ms host"
+                     for r, p in enumerate(prof) if p)
+    print(f"[tp] TIGER TP train step (profiler, 3 steps after a warm-up, both ranks at once on "
+          f"one card, gloo through the host): {line or 'not measured'}")
+    seconds = time.perf_counter() - t0
+    print(f"[tp] phase {seconds:.1f} s")
+    return dict(fwd=sum(r["epoch_launches"][0] for r in ranks),
+                bwd=sum(r["epoch_launches"][1] for r in ranks),
+                reduce=sum(r["epoch_launches"][2] for r in ranks),
+                max_grad_diff=worst[0], prof=prof, seconds=seconds)
+
+
+def phase_profile_dir(tmp, tr, te):
+    """``[profile-dir]``: ``tiger_pipeline.train`` at ``TIGERConfig()`` for 2
+    epochs with ``trainer.profile_dir`` set. The Trainer traces the second
+    epoch only: one Chrome-trace file, its "train epoch 2" range and no
+    other epoch's, kernel #1 and #2 at 6 launches a step of one epoch and
+    the dbias reduction at 4."""
+    import glob
+
+    from genrec_tpu_torch.configs import TIGERConfig
+    from genrec_tpu_torch.data.datasets import num_batches
+    from genrec_tpu_torch.ops import t5_attention as ta
+    from genrec_tpu_torch.pipelines import tiger_pipeline
+
+    prof_dir = os.path.join(tmp, "profile")
+    base = TIGERConfig(constrained_decoding="trie")
+    cfg = dataclasses.replace(base, trainer=dataclasses.replace(
+        base.trainer, epochs=2, batch_size=BATCH, eval_batch_size=BATCH,
+        ckpt_dir=os.path.join(tmp, "profile_ckpt"), seed=0, profile_dir=prof_dir))
+    steps, val_batches = num_batches(len(tr.input_ids), BATCH), num_batches(len(te.input_ids),
+                                                                            BATCH)
+    # ---- the [profile-dir] path: counts at 0 just before, read just after ----
+    ta.launches = ta.bwd_launches = ta.dbias_reduce_launches = 0
+    art = tiger_pipeline.train(cfg, tr, te, device="cuda")
+    torch.cuda.synchronize()
+    fwd, bwd, reduce = ta.launches, ta.bwd_launches, ta.dbias_reduce_launches
+    # ---- end ----
+    assert (fwd, bwd, reduce) == (12 * steps + 12 * val_batches, 12 * steps, 8 * steps), (
+        fwd, bwd, reduce)
+    files = glob.glob(os.path.join(prof_dir, "*.pt.trace.json"))
+    assert len(files) == 1, files
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    count = {k: sum(k in n for n in kernels) for k in (
+        "t5_attention_fwd_kernel", "t5_attention_bwd_kernel", "t5_attention_dbias_reduce_kernel")}
+    epochs = sorted({n for n in names if n.startswith("train epoch ")})
+    print(f"[profile-dir] tiger_pipeline.train, 2 epochs of {steps} steps with profile_dir: "
+          f"{os.path.basename(files[0])} ({os.path.getsize(files[0]) / 2**20:.1f} MiB, "
+          f"{len(events)} events, {len(kernels)} kernels); ranges {epochs}; kernel events "
+          f"{count} (want 6, 6 and 4 x {steps}); losses {art.result.train_losses}")
+    assert epochs == ["train epoch 2"], epochs
+    assert count == {"t5_attention_fwd_kernel": 6 * steps, "t5_attention_bwd_kernel": 6 * steps,
+                     "t5_attention_dbias_reduce_kernel": 4 * steps}, count
+    return dict(fwd=fwd, bwd=bwd, reduce=reduce, kernels=count)
+
+
 def _greedy_margins(model, embs):
     """For each row, the smallest gap between its two nearest codes over the
     levels of the greedy assignment, relative to the row's largest distance
@@ -2999,11 +3380,16 @@ BF16_LOSS_REL, BF16_OUT_REL, BF16_GRAD_REL = 5e-3, 2.0 ** -6, 3e-2  # bf16 steps
 # on the CPU is held within twice that distance instead: two bf16 steps that round apart
 # lie up to about twice as far from each other as each from f64 (TIGER-prefix's adapters
 # and DenseT5's norms lie 5-6% from f64 on both sides on an H100)
-BF16_GEN_REL, BF16_GEN_MARGIN = 2.0 ** -8, 0.05  # bf16 generate, card vs CPU: scores within
-# BF16_GEN_REL x max|score| (a bf16 rounding of the largest score: the two sides round their
-# bf16 activations after sums taken in other orders, and a flipped rounding moves a
-# log-probability; 1.75e-2 measured at scores near -14 on an H100); top beams equal on rows
-# whose margin over the second beam exceeds BF16_GEN_MARGIN
+BF16_GEN_REL, BF16_GEN_MARGIN = 2.0 ** -8, 0.05  # bf16 generate, card vs CPU: the score of
+# every sequence that both beam searches return within BF16_GEN_REL x max|score| (a bf16
+# rounding of the largest score: the two sides round their bf16 activations after sums taken
+# in other orders, and a flipped rounding moves a log-probability), or within twice the CPU's
+# bf16 distance from an f32 call on the same weights where that is larger, as the gradients
+# above (the CPU's bf16 rounding depends on its instruction set); each side's top sequence
+# among the other's beams; top beams equal on rows whose margin over the second beam exceeds
+# BF16_GEN_MARGIN. Scores are matched by sequence, not by rank: where two candidates for the
+# last beam slots round apart, the searches keep different prefixes, and the same rank then
+# holds different sequences whose scores differ by the gap between them, not by rounding
 # (name, heads, batch, Lq, Lk, keyword arguments of bwd_case): the TIGER, TIGER-prefix and
 # DenseT5 train shapes at batch 256, each with the f32 dropout mask and without, and the
 # serving shape (B = 1, forward only, no mask)
@@ -3258,6 +3644,23 @@ def bf16_step_parity(tag, make, arrays, loss_fn):
     return dist
 
 
+def _beam_scores_by_sequence(tok_a, score_a, tok_b, score_b):
+    """Two beam searches' ``(B, beams, len)`` tokens and ``(B, beams)``
+    scores, best first: the largest |score difference| over the sequences
+    that both return in a row (masked beams, at -1e30, left out), how many
+    beams of ``b`` are such sequences, and on how many rows each side's top
+    sequence is among the other's beams."""
+    worst, shared, tops = 0.0, 0, 0
+    for ta_, sa, tb, sb in zip(tok_a, score_a, tok_b, score_b):
+        a = {tuple(t.tolist()): s.item() for t, s in zip(ta_, sa) if s > -1e29}
+        b = {tuple(t.tolist()): s.item() for t, s in zip(tb, sb) if s > -1e29}
+        common = a.keys() & b.keys()
+        shared += len(common)
+        worst = max([worst] + [abs(a[k] - b[k]) for k in common])
+        tops += tuple(ta_[0].tolist()) in b and tuple(tb[0].tolist()) in a
+    return worst, shared, tops
+
+
 def phase_bf16(tmp, tr, te, codes, train, prefix_data, dense_data):
     """``[bf16]``: the T5 stack at ``arch.dtype="bfloat16"``. (a) a B=16
     TIGER step on the card against the CPU's bf16 step (:func:`bf16_step_parity`);
@@ -3367,16 +3770,39 @@ def phase_bf16(tmp, tr, te, codes, train, prefix_data, dense_data):
     cpu.eval()
     ct, cs = generate(cpu, torch.from_numpy(ii[:rows]), torch.from_numpy(am[:rows]),
                       num_beams=BEAMS, constraint=make_constraint(cfg, codes))
-    gen_err = (cs - scores[:rows].cpu()).abs().max().item()
-    gen_tol = BF16_GEN_REL * cs[cs > -1e29].abs().max().item()
+    gt, gs = tokens[:rows].cpu(), scores[:rows].cpu()
+    f32 = TIGER(with_dtype(cfg, "float32"))  # the same weights computed in f32: the witness
+    f32.load_state_dict(art.params)
+    f32.eval()
+    ft, fs = generate(f32, torch.from_numpy(ii[:rows]), torch.from_numpy(am[:rows]),
+                      num_beams=BEAMS, constraint=make_constraint(cfg, codes))
+    gen_err, shared, tops = _beam_scores_by_sequence(ct, cs, gt, gs)
+    cpu_f32, cpu_f32_shared, _ = _beam_scores_by_sequence(ct, cs, ft, fs)
+    card_f32, card_f32_shared, _ = _beam_scores_by_sequence(gt, gs, ft, fs)
+    by_rank = (cs - gs).abs().max().item()
+    gen_tol = max(BF16_GEN_REL * cs[cs > -1e29].abs().max().item(), 2 * cpu_f32)
     margin = (cs[:, 0] - cs[:, 1]).numpy()
     clear = margin > BF16_GEN_MARGIN
-    same = (ct[:, 0] == tokens[:rows, 0].cpu()).all(dim=1).numpy()
+    same = (ct[:, 0] == gt[:, 0]).all(dim=1).numpy()
     print(f"[bf16] generate B={BATCH} beams={BEAMS}: first {rows} rows against the CPU's bf16 "
-          f"call: scores max abs {gen_err:.3e} (bound {gen_tol:.3e}); top sequence equal on "
-          f"{int(same.sum())} of {rows} rows, on {int((same & clear).sum())} of the "
-          f"{int(clear.sum())} whose margin exceeds {BF16_GEN_MARGIN}")
-    assert gen_err <= gen_tol and same[clear].all(), (gen_err, same, margin)
+          f"call: {shared} of {gs.numel()} beams hold a sequence the other side returned too; "
+          f"their scores max abs {gen_err:.3e} (bound {gen_tol:.3e}: the larger of "
+          f"{BF16_GEN_REL} x max|score| and twice the CPU's distance from f32; rank by rank, "
+          f"printed, not held: {by_rank:.3e}); each side's top sequence among the other's beams "
+          f"on {tops} of {rows} rows; top sequence equal on {int(same.sum())} of {rows} rows, on "
+          f"{int((same & clear).sum())} of the {int(clear.sum())} whose margin exceeds "
+          f"{BF16_GEN_MARGIN}")
+    print(f"[bf16] against the CPU's f32 call on the same weights (by sequence): CPU bf16 "
+          f"{cpu_f32:.3e} ({cpu_f32_shared} beams shared), card bf16 {card_f32:.3e} "
+          f"({card_f32_shared} shared)")
+    assert gen_err <= gen_tol and tops == rows and same[clear].all(), (
+        gen_err, gen_tol, tops, same, margin)
+    st, ss = generate(model, torch.from_numpy(ii[:rows]).cuda(), torch.from_numpy(am[:rows]).cuda(),
+                      num_beams=BEAMS, constraint=constraint)
+    small = _beam_scores_by_sequence(st.cpu(), ss.cpu(), gt, gs)
+    print(f"[bf16] the card's own {rows}-row call against its B={BATCH} call (printed, not "
+          f"held): scores rank by rank max abs {(ss.cpu() - gs).abs().max().item():.3e}; "
+          f"{small[1]} beams shared, their scores max abs {small[0]:.3e}")
 
     # (d)
     ptr, _ = prefix_data
@@ -3623,21 +4049,29 @@ def bf16_records(fwd, bwd, regs, path):
     return [fwd_rec, bwd_rec]
 
 
+def set_precision() -> None:
+    """TF32 off, so f32 means f32, and a bf16 GEMM summing in f32, as XLA's
+    does (the library leaves this to its caller)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the card only",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--tp-rank"]:
+        return tp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
     sys.path.insert(0, HERE)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # a bf16 GEMM sums in f32, as XLA's does (the library leaves this to its caller)
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    set_precision()
     card = card_line()
     print(f"[device] {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
           f"tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}; bf16 reduced-precision reduction="
-          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}; host CPU "
+          f"{cpu_line()}")
     t_start = time.perf_counter()
     results, ptxas = phase_kernels()
     bwd = phase_bwd_kernels()
@@ -3650,6 +4084,8 @@ def main() -> int:
         launches, req_s, seqs_s = phase_serving(tmp)
         train = phase_train(tmp, tr, te, codes)
         dist_run = phase_dist(tmp, tr, te, train)
+        tp_run = phase_tp(tmp, tr, te, train)
+        prof_dir = phase_profile_dir(tmp, tr, te)
         rq_codes, rqvae = phase_rqvae(tmp)
         prefix_data = prefix_corpus(rq_codes)
         prefix = phase_tiger_prefix(tmp, *prefix_data)
@@ -3665,6 +4101,8 @@ def main() -> int:
         lc_train = phase_sasrec_large_train()
     assert launches > 0 and train["fwd"] > 0 and train["bwd"] > 0
     assert dist_run["tiger"]["fwd"] > 0 and dist_run["tiger"]["bwd"] > 0
+    assert tp_run["fwd"] > 0 and tp_run["bwd"] > 0 and tp_run["reduce"] > 0
+    assert prof_dir["fwd"] > 0 and prof_dir["bwd"] > 0 and prof_dir["reduce"] > 0
     assert prefix["fwd"] > 0 and prefix["bwd"] > 0 and prefix["reduce"] > 0
     assert dense["fwd"] > 0 and dense["bwd"] > 0 and dense["reduce"] > 0
     assert bf16["fwd"] > 0 and bf16["bwd"] > 0 and bf16["reduce"] > 0
@@ -3679,9 +4117,11 @@ def main() -> int:
         "source": "genrec_tpu_torch/csrc/t5_attention_fwd.cu",
         "replaces": "genrec_tpu/ops/t5_attention.py:115",
         "launches": (launches + train["fwd"] + prefix["fwd"] + dense["fwd"] + app_fwd
-                     + cli_run["fwd"] + dist_run["tiger"]["fwd"]),
+                     + cli_run["fwd"] + dist_run["tiger"]["fwd"] + tp_run["fwd"]
+                     + prof_dir["fwd"]),
         "launches_by_path": {"serve": launches, "train": train["fwd"],
-                             "dist": dist_run["tiger"]["fwd"],
+                             "dist": dist_run["tiger"]["fwd"], "tp": tp_run["fwd"],
+                             "profile_dir": prof_dir["fwd"],
                              "tiger_prefix": prefix["fwd"],
                              **{f"dense_t5_{k}": n for k, n in dense["fwd_by_path"].items()},
                              "app": app_fwd, "cli": cli_run["fwd"]},
@@ -3726,10 +4166,12 @@ def main() -> int:
         "name": "t5_attention_bwd", "route": "cuda",
         "source": "genrec_tpu_torch/csrc/t5_attention_bwd.cu",
         "replaces": "genrec_tpu/ops/t5_attention.py:129",
-        "launches": train["bwd"] + prefix["bwd"] + dense["bwd"] + dist_run["tiger"]["bwd"],
+        "launches": (train["bwd"] + prefix["bwd"] + dense["bwd"] + dist_run["tiger"]["bwd"]
+                     + tp_run["bwd"] + prof_dir["bwd"]),
         "launches_by_path": {"serve": 0, "train": train["bwd"], "tiger_prefix": prefix["bwd"],
                              "dense_t5_train": dense["bwd"], "app": 0, "cli": 0,
-                             "dist": dist_run["tiger"]["bwd"]},
+                             "dist": dist_run["tiger"]["bwd"], "tp": tp_run["bwd"],
+                             "profile_dir": prof_dir["bwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in bwd.values()),
         "max_rel_err": max(r["max_rel_err"] for r in bwd.values()),
         "ms": dec["ms"], "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
@@ -3758,7 +4200,9 @@ def main() -> int:
         "dbias_reduce_launches_by_path": {"train": train["reduce"],
                                           "tiger_prefix": prefix["reduce"],
                                           "dense_t5_train": dense["reduce"],
-                                          "dist": dist_run["tiger"]["reduce"]},
+                                          "dist": dist_run["tiger"]["reduce"],
+                                          "tp": tp_run["reduce"],
+                                          "profile_dir": prof_dir["reduce"]},
         **{f"dense_train_{m}": bwd["dense_train"][m]
            for m in ("ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms", "bound_ms_f32",
                      "max_rel_err", "smem_bytes", "blocks_per_sm")},
@@ -3770,10 +4214,11 @@ def main() -> int:
         "source": "genrec_tpu_torch/csrc/t5_attention_bwd.cu",
         "replaces": "genrec_tpu/ops/t5_attention.py:157 (the dbias sum of _bwd_kernel)",
         "launches": (train["reduce"] + prefix["reduce"] + dense["reduce"]
-                     + dist_run["tiger"]["reduce"]),
+                     + dist_run["tiger"]["reduce"] + tp_run["reduce"] + prof_dir["reduce"]),
         "launches_by_path": {"serve": 0, "train": train["reduce"],
                              "tiger_prefix": prefix["reduce"], "dense_t5_train": dense["reduce"],
-                             "app": 0, "cli": 0, "dist": dist_run["tiger"]["reduce"]},
+                             "app": 0, "cli": 0, "dist": dist_run["tiger"]["reduce"],
+                             "tp": tp_run["reduce"], "profile_dir": prof_dir["reduce"]},
         "max_abs_err": reduce["max_abs_err"], "ms": reduce["ms"], "plain_ms": reduce["plain_ms"],
         "bound_ms": reduce["bound_ms"], "bound_by": reduce["bound_by"],
         "library_ms": reduce["library_ms"], "device_ms": reduce["device_ms"],
@@ -3804,6 +4249,9 @@ def main() -> int:
               f"{k} {dist_run[k]['runs']['psum'][1]:.2f} ms host, peak "
               f"{dist_run[k]['peak_gib']:.2f} GiB" for k in ("float32", "bfloat16"))
           + f", phase {dist_run['seconds']:.1f} s"
+          + f"; tp: phase {tp_run['seconds']:.1f} s, step device ms per rank "
+          + ", ".join("not measured" if p is None else f"{p[0] / 1e3:.3f}"
+                      for p in tp_run["prof"])
           + f"; bf16 TIGER: train step device {bf16['device_ms']} ms against f32 "
           f"{train['device_ms']} ms, Recall@10 {bf16['recall10']:.4f}; remat peak MiB / device "
           "ms: " + ", ".join(f"{k} {v['peak_mib']:.1f} / {v['device_ms']:.3f}"

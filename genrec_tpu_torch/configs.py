@@ -39,12 +39,13 @@ class MeshConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
     """Shared trainer knobs (``train/trainer.py``). The port's trainer does
-    not read ``bucket_interleave_chunks``, ``profile_dir`` or
-    ``composite_mix`` yet, nor ``param_dtype`` and ``compute_dtype``, which
-    the reference reads nowhere either (the T5 models' compute dtype is
-    ``T5ArchConfig.dtype``); they are kept so TIGERConfig compares with the
-    reference. ``shard_dataset`` (None: on with more than
-    one rank) splits the datasets' rows over the mesh's 'data' axis."""
+    not read ``bucket_interleave_chunks`` or ``composite_mix`` yet, nor
+    ``param_dtype`` and ``compute_dtype``, which the reference reads nowhere
+    either (the T5 models' compute dtype is ``T5ArchConfig.dtype``); they
+    are kept so TIGERConfig compares with the reference. ``profile_dir``
+    traces one epoch, the second of a fit (``utils/profiling.py``).
+    ``shard_dataset`` (None: on with more than one rank) splits the
+    datasets' rows over the mesh's 'data' axis."""
 
     batch_size: int = 128
     eval_batch_size: int = 128

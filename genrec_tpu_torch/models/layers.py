@@ -6,22 +6,30 @@ Flax dropout and the Flax initialisers the port's models use.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator], *,
+            cols: Optional[Tuple[int, int]] = None):
     """Flax ``nn.Dropout``: keep each element with probability 1 − rate and
     divide the kept ones by 1 − rate, in ``x``'s dtype: as in Flax's
     ``x / keep_prob``, 1 − rate is first rounded to that dtype (0.8984375 for
     a bf16 ``x`` at rate 0.1); the identity at rate 0. The mask is drawn from
-    ``generator``, never the global RNG."""
+    ``generator``, never the global RNG. With ``cols`` = (first, width),
+    ``x`` holds the last-axis columns [first, first + x.shape[-1]) of a
+    tensor ``width`` wide (a tensor-parallel shard): the whole tensor's mask
+    is drawn and those columns kept, so the shard is dropped as the whole
+    tensor would be and the generator advances as far."""
     if rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    shape = x.shape if cols is None else (*x.shape[:-1], cols[1])
+    keep = torch.rand(shape, generator=generator, device=x.device) >= rate
+    if cols is not None:
+        keep = keep[..., cols[0]:cols[0] + x.shape[-1]]
     keep_prob = float(torch.tensor(1.0 - rate, dtype=x.dtype))
     return torch.where(keep, x / keep_prob, 0.0)
 

@@ -20,6 +20,14 @@ Losses reproduce `SASRec/train.py:140-168` (full-vocab scores, BCE on the
 positive and shared sampled negatives, padding-masked, normalised per valid
 timestep) and `SASRec/train.py:59-81` (one-negative validation loss). Both
 take the negatives as an argument, or draw them from the generator.
+
+Tensor parallelism over the mesh's 'model' axis: when
+``parallel.tensor.shard_model_`` has cut the item table's rows (its
+I + 1 rows divide the axis), lookups go through the psum lookup
+(``ops/embedding.sharded_embedding_lookup``) and the scores against the
+table are this rank's vocabulary columns, gathered whole
+(``parallel.tensor.gather_from_model``), so the losses run unchanged on the
+full scores. A table whose rows do not divide stays whole.
 """
 
 from __future__ import annotations
@@ -34,7 +42,9 @@ from torch.nn import functional as F
 from genrec_tpu_torch.configs import SASRecConfig
 from genrec_tpu_torch.models.layers import PaddedEmbed, dense, dropout
 from genrec_tpu_torch.ops.attention import multi_head_attention
+from genrec_tpu_torch.ops.embedding import sharded_embedding_lookup
 from genrec_tpu_torch.ops.negative_sampling import sample_negatives
+from genrec_tpu_torch.parallel.tensor import copy_to_model, gather_from_model
 
 
 def _drop_rate(module: nn.Module, rate: float, generator: Optional[torch.Generator]) -> float:
@@ -97,10 +107,34 @@ class SASRec(nn.Module):
                         generator=generator)
             for _ in range(cfg.num_blocks))
         self.last_norm = nn.LayerNorm(cfg.d, eps=cfg.layernorm_eps)
+        self.tp_mesh = None  # set by parallel.tensor.shard_model_
+
+    def _table_mesh(self):
+        """The mesh when the item table's rows were cut over 'model', else None."""
+        return self.tp_mesh if self.item_emb.weight.shape[0] < self.item_num + 1 else None
+
+    def table_rows(self, ids):
+        """Rows ``ids`` of the item table, row 0 included."""
+        mesh = self._table_mesh()
+        if mesh is None:
+            return self.item_emb.weight[ids]
+        return sharded_embedding_lookup(self.item_emb.weight, ids, mesh)
+
+    def _scores(self, h):
+        """h against every item embedding: (…, I+1)."""
+        mesh = self._table_mesh()
+        if mesh is None:
+            return h @ self.item_emb.weight.T
+        return gather_from_model(copy_to_model(h, mesh) @ self.item_emb.weight.T, mesh, -1)
 
     def forward(self, log_seqs, generator: Optional[torch.Generator] = None):
         """(B, n) item ids → (B, n, d) sequence features."""
-        return self.encode(self.item_emb(log_seqs), generator)
+        if self._table_mesh() is None:
+            emb = self.item_emb(log_seqs)
+        else:  # PaddedEmbed's zero row 0, on the psum lookup
+            emb = self.table_rows(log_seqs)
+            emb = emb * (log_seqs != 0)[..., None].to(emb.dtype)
+        return self.encode(emb, generator)
 
     def encode(self, emb, generator: Optional[torch.Generator] = None):
         """(B, n, d) gathered item embeddings → (B, n, d) sequence features."""
@@ -111,11 +145,11 @@ class SASRec(nn.Module):
 
     def predict(self, log_seqs, generator: Optional[torch.Generator] = None):
         """Last-step features against all item embeddings: (B, I+1) logits."""
-        return self(log_seqs, generator)[:, -1, :] @ self.item_emb.weight.T
+        return self._scores(self(log_seqs, generator)[:, -1, :])
 
     def score_all(self, log_seqs, generator: Optional[torch.Generator] = None):
         """All-timestep full-vocab scores (B, n, I+1) (`SASRec/train.py:131-137`)."""
-        return self(log_seqs, generator) @ self.item_emb.weight.T
+        return self._scores(self(log_seqs, generator))
 
 
 def _bce(scores, positive: bool, eps: float):
@@ -157,9 +191,8 @@ def eval_loss(model: SASRec, inputs, targets, generator: Optional[torch.Generato
     if neg is None:
         neg = sample_negatives(generator, inputs, item_num, 1)[:, 0]
     h = model(inputs, generator)[:, -1, :]
-    table = model.item_emb.weight
-    pos_score = (h * table[targets.long()]).sum(dim=-1)
-    neg_score = (h * table[neg.long()]).sum(dim=-1)
+    pos_score = (h * model.table_rows(targets.long())).sum(dim=-1)
+    neg_score = (h * model.table_rows(neg.long())).sum(dim=-1)
     per = _bce(pos_score, True, cfg.loss_eps) + _bce(neg_score, False, cfg.loss_eps)
     valid_mask = targets != 0
     if batch_valid is not None:

@@ -57,6 +57,19 @@ replays that generator's state in the recompute and then puts it back: the
 recompute draws the forward's masks, and the generator ends where the
 forward without remat leaves it. The math is unchanged: loss and gradients
 equal the forward without remat.
+
+Tensor parallelism over the mesh's 'model' axis (``parallel/tensor.py``;
+``parallel.tensor.shard_model_`` cuts the weights and sets ``tp_mesh``):
+an attention whose q/k/v/o were cut runs this rank's heads [h0, h0 + H/M)
+through kernels #1 and #2 in the same flat layout, its input through
+``copy_to_model`` and ``o``'s partial output through ``reduce_from_model``;
+the feed-forward takes ``wi``'s columns and ``wo``'s rows of d_ff alike; the
+relative-bias table stays whole and each stack cuts its bias to the rank's
+heads. Every dropout mask of a cut tensor is drawn at the whole tensor's
+width and sliced, so a rank drops what the one-device model drops and the
+generator advances as far; under ``_remat`` every rank recomputes, so the
+collectives still pair. The KV-cache decode path runs on the whole model
+only (evaluation and serving load the gathered weights).
 """
 
 from __future__ import annotations
@@ -73,6 +86,7 @@ from genrec_tpu_torch.configs import T5ArchConfig
 from genrec_tpu_torch.models.layers import dropout as _dropout
 from genrec_tpu_torch.ops.attention import dot_product_attention
 from genrec_tpu_torch.ops.t5_attention import fused_t5_attention_flat, make_dropout_mask
+from genrec_tpu_torch.parallel.tensor import copy_to_model, reduce_from_model
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
@@ -221,6 +235,7 @@ class RelativePositionBias(nn.Module):
         self.bidirectional = bidirectional
         self.rel_embedding = nn.Parameter(
             torch.empty(cfg.relative_attention_num_buckets, cfg.num_heads))
+        self.tp_mesh = None  # set by parallel.tensor.shard_model_
 
     def reset_parameters(self, generator=None):
         _normal_(self.rel_embedding, (self.cfg.d_model // self.cfg.num_heads) ** -0.5,
@@ -235,9 +250,16 @@ class RelativePositionBias(nn.Module):
             num_buckets=self.cfg.relative_attention_num_buckets,
             max_distance=self.cfg.relative_attention_max_distance)
 
-    def forward(self, qlen: int, klen: int) -> torch.Tensor:
-        bias = self.rel_embedding[self.buckets(qlen, klen)]  # (q, k, heads)
-        return bias.permute(2, 0, 1)[None]                   # (1, heads, q, k)
+    def forward(self, qlen: int, klen: int, heads: Optional[Tuple[int, int]] = None
+                ) -> torch.Tensor:
+        """(1, heads, q, k); with ``heads`` = (first, count) fewer than all,
+        those heads of the whole table (a tensor-parallel rank's), whose
+        gradient is then summed over 'model'."""
+        table = self.rel_embedding
+        if heads is not None and heads[1] < self.cfg.num_heads:
+            table = copy_to_model(table, self.tp_mesh)[:, heads[0]:heads[0] + heads[1]]
+        bias = table[self.buckets(qlen, klen)]  # (q, k, heads)
+        return bias.permute(2, 0, 1)[None]      # (1, heads, q, k)
 
 
 class T5Attention(nn.Module):
@@ -250,6 +272,7 @@ class T5Attention(nn.Module):
         self.k = Dense(cfg.d_model, inner, dt)
         self.v = Dense(cfg.d_model, inner, dt)
         self.o = Dense(inner, cfg.d_model, dt)
+        self.tp_mesh = None  # set by parallel.tensor.shard_model_
 
     def reset_parameters(self, generator=None):
         c = self.cfg
@@ -258,6 +281,12 @@ class T5Attention(nn.Module):
         _normal_(self.k.weight, c.d_model ** -0.5, generator)
         _normal_(self.v.weight, c.d_model ** -0.5, generator)
         _normal_(self.o.weight, inner ** -0.5, generator)
+
+    def local_heads(self) -> Tuple[int, int]:
+        """(first head, head count) this rank computes: every head unless
+        q/k/v/o were cut over 'model', then its block of H/M heads."""
+        hl = self.q.weight.shape[0] // self.cfg.d_kv
+        return (0 if hl == self.cfg.num_heads else self.tp_mesh.index("model") * hl), hl
 
     def _split_heads(self, t):
         b, l, _ = t.shape
@@ -293,28 +322,41 @@ class T5Attention(nn.Module):
         h, dkv = c.num_heads, c.d_kv
         inner = h * dkv
         b, lq = x.shape[0], x.shape[1]
+        h0, hl = self.local_heads()
         if isinstance(bias, AttnSpec):
             if kv_cache is not None:
                 raise ValueError("AttnSpec with kv_cache is unsupported")
             lk = kv.shape[1]
+            mesh = self.tp_mesh if hl < h else None
+            if mesh is not None:  # this rank's heads: q/k/v column-parallel
+                self_attention = kv is x
+                x = copy_to_model(x, mesh)
+                kv = x if self_attention else copy_to_model(kv, mesh)
 
             def flat(t, ll):  # (B, L, H·D) → (H·B, L, D), head slowest
                 # at B = 1 the reshape is a strided view: make it contiguous
-                return (t.view(b, ll, h, dkv).permute(2, 0, 1, 3)
-                        .reshape(h * b, ll, dkv).contiguous())
+                return (t.view(b, ll, hl, dkv).permute(2, 0, 1, 3)
+                        .reshape(hl * b, ll, dkv).contiguous())
 
             rate = _drop_rate(self, generator)
             # attn_remat_dropout: the kernel's caller draws the mask and draws
             # it again for the backward instead of keeping it
             redraw = rate > 0.0 and c.attn_remat_dropout
-            dmask = (make_dropout_mask(generator, h * b, lq, lk, rate, x.device)
+            # drawn at the width of all H heads: this rank keeps its heads' rows
+            cut = mesh is not None
+            dmask = (make_dropout_mask(generator, h * b, lq, lk, rate, x.device,
+                                       slice(h0 * b, (h0 + hl) * b) if cut else None)
                      if rate > 0.0 and not redraw else None)
             of = fused_t5_attention_flat(flat(self.q(x), lq), flat(self.k(kv), lk),
-                                         flat(self.v(kv), lk), h, bias.pos_bias,
+                                         flat(self.v(kv), lk), hl, bias.pos_bias,
                                          bias.kv_mask, dropout_rate=rate, dropout_mask=dmask,
-                                         dropout_generator=generator if redraw else None)
-            out = of.view(h, b, lq, dkv).permute(1, 2, 0, 3).reshape(b, lq, inner)
-            return self.o(out)
+                                         dropout_generator=generator if redraw else None,
+                                         dropout_rows=(h0 * b, h * b) if redraw and cut else None)
+            out = of.view(hl, b, lq, dkv).permute(1, 2, 0, 3).reshape(b, lq, hl * dkv)
+            return reduce_from_model(self.o(out), mesh)  # o row-parallel
+        if hl < h:
+            raise ValueError("the KV-cache attention runs on the whole model: load the "
+                             "gathered weights (parallel.tensor.gather_state) to decode")
         qh = self._split_heads(self.q(x))
         kh, vh = kv_cache if kv_cache is not None else self.project_kv(kv)
         if kv_cache is not None and kv_beams is not None and kv_beams > 1:
@@ -335,18 +377,24 @@ class T5FeedForward(nn.Module):
         dt = compute_dtype(cfg)
         self.wi = Dense(cfg.d_model, cfg.d_ff, dt)
         self.wo = Dense(cfg.d_ff, cfg.d_model, dt)
+        self.tp_mesh = None  # set by parallel.tensor.shard_model_
 
     def reset_parameters(self, generator=None):
         _normal_(self.wi.weight, self.cfg.d_model ** -0.5, generator)
         _normal_(self.wo.weight, self.cfg.d_ff ** -0.5, generator)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
-        h = self.wi(x)
+        d_ff, fl = self.cfg.d_ff, self.wi.weight.shape[0]
+        # cut over 'model': this rank's d_ff block, wi column- and wo row-parallel
+        mesh = self.tp_mesh if fl < d_ff else None
+        h = self.wi(copy_to_model(x, mesh))
         if self.cfg.feed_forward_proj == "relu":
             h = F.relu(h)
         else:  # flax nn.gelu is the tanh approximation
             h = F.gelu(h, approximate="tanh")
-        return self.wo(_dropout(h, _drop_rate(self, generator), generator))
+        cols = None if mesh is None else (mesh.index("model") * fl, d_ff)
+        return reduce_from_model(self.wo(_dropout(h, _drop_rate(self, generator), generator,
+                                                  cols=cols)), mesh)
 
 
 class T5Block(nn.Module):
@@ -410,7 +458,8 @@ class T5Stack(nn.Module):
         lq = inputs_embeds.shape[1]
         dev = inputs_embeds.device
         if cross_kvs is None:
-            pos = self.rel_bias(lq, lq)[0]  # (H, Lq, Lq)
+            # (H, Lq, Lq); this rank's heads under tensor parallelism
+            pos = self.rel_bias(lq, lq, self.blocks[0].self_attn.local_heads())[0]
             if self.is_decoder:
                 pos = pos + _causal_bias(lq, dev)  # causal folded into the bias
             contig = lambda m: None if m is None else m.contiguous()  # noqa: E731

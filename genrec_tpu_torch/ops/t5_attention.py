@@ -42,7 +42,7 @@ forward and the backward).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -139,13 +139,19 @@ def bwd_occupancy(lq: int, lk: int, d: int, dtype=torch.float32):
 
 
 def make_dropout_mask(generator: torch.Generator, hb: int, lq: int, lk: int, rate: float,
-                      device=None) -> torch.Tensor:
+                      device=None, rows: Optional[slice] = None) -> torch.Tensor:
     """Multiplicative inverted-dropout mask for the flat (H·B, Lq, Lk) layout:
     f32 values in {0, 1/(1−rate)}, each kept with probability 1 − rate, drawn
     from ``generator`` (on ``device``) and no global RNG. The scale is the f32
     1/keep that the reference's XLA dropout path divides by; the reference's
-    own ``make_dropout_mask`` rounds it to bf16 (1.109375 at rate 0.1)."""
+    own ``make_dropout_mask`` rounds it to bf16 (1.109375 at rate 0.1).
+    ``rows`` keeps those flat rows of the (H·B, Lq, Lk) draw: a
+    tensor-parallel rank's heads [h0, h0 + H_local) are the rows
+    [h0·B, (h0 + H_local)·B), head slowest, and the generator advances as
+    for the whole mask."""
     keep = torch.rand((hb, lq, lk), generator=generator, device=device) >= rate
+    if rows is not None:
+        keep = keep[rows]
     return torch.where(keep, 1.0 / (1.0 - rate), 0.0).to(torch.float32)
 
 
@@ -155,8 +161,8 @@ class RedrawnMask:
     can be drawn again later instead of being kept."""
 
     def __init__(self, generator: torch.Generator, hb: int, lq: int, lk: int, rate: float,
-                 device=None):
-        self.generator, self.args = generator, (hb, lq, lk, rate, device)
+                 device=None, rows: Optional[slice] = None):
+        self.generator, self.args = generator, (hb, lq, lk, rate, device, rows)
         self.state = generator.get_state()
 
     def draw(self) -> torch.Tensor:
@@ -464,14 +470,18 @@ class _FusedT5Attention(torch.autograd.Function):
 def fused_t5_attention_flat(qf, kf, vf, h: int, pos_bias=None, kv_mask=None, *,
                             causal: bool = False, dropout_rate: float = 0.0,
                             dropout_mask: Optional[torch.Tensor] = None,
-                            dropout_generator: Optional[torch.Generator] = None):
+                            dropout_generator: Optional[torch.Generator] = None,
+                            dropout_rows: Optional[Tuple[int, int]] = None):
     """Flat-layout entry: qf/kf/vf (H·B, L, D), f32 or bf16, head dimension
     slowest; out in their dtype. ``pos_bias`` is cast to f32.
     ``dropout_mask`` (H·B, Lq, Lk) f32 holds {0, 1/(1−rate)} (see
     :func:`make_dropout_mask`) and is used only when ``dropout_rate > 0``;
     or, with ``dropout_generator`` instead, the mask is drawn from it here by
     :func:`make_dropout_mask` and drawn again in the backward rather than
-    kept (:class:`RedrawnMask`). Differentiable in q, k, v and ``pos_bias``."""
+    kept (:class:`RedrawnMask`); ``dropout_rows`` = (first row, rows of the
+    whole mask) then says which rows of a wider draw these flat rows are (a
+    tensor-parallel rank's heads). Differentiable in q, k, v and
+    ``pos_bias``."""
     redraw = None
     if dropout_rate > 0.0:
         if (dropout_mask is None) == (dropout_generator is None):
@@ -479,8 +489,11 @@ def fused_t5_attention_flat(qf, kf, vf, h: int, pos_bias=None, kv_mask=None, *,
                              "dropout_generator")
         if dropout_generator is not None:
             hb, lq, _ = qf.shape
-            redraw = RedrawnMask(dropout_generator, hb, lq, kf.shape[1], dropout_rate,
-                                 qf.device)
+            total, rows = hb, None
+            if dropout_rows is not None:
+                total, rows = dropout_rows[1], slice(dropout_rows[0], dropout_rows[0] + hb)
+            redraw = RedrawnMask(dropout_generator, total, lq, kf.shape[1], dropout_rate,
+                                 qf.device, rows)
     dmask = dropout_mask if dropout_rate > 0.0 else None
     return _FusedT5Attention.apply(qf, kf, vf, _f32(pos_bias), kv_mask, dmask, h, causal,
                                    redraw)

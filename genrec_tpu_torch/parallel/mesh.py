@@ -63,22 +63,31 @@ class Mesh:
 
 
 def initialize_multihost(init_method: Optional[str] = None, world_size: Optional[int] = None,
-                         rank: Optional[int] = None, *, device=None) -> torch.device:
+                         rank: Optional[int] = None, *, device=None,
+                         backend: Optional[str] = None) -> torch.device:
     """Join this process to a group of ``world_size`` ranks at ``init_method``
     (``tcp://host:port`` or ``file:///path``) and return the device it runs
-    on: NCCL and ``cuda:<rank % cards>`` unless ``device="cpu"``, which takes
-    gloo. Without ``world_size`` it is a no-op (one process, no group) and
-    returns ``resolve_device(device)``. A failed NCCL start raises; it is
-    never retried on gloo."""
+    on: ``cuda:<rank % cards>`` unless ``device="cpu"``. ``backend`` is the
+    group's: by default NCCL on the card and gloo on the CPU; ``"gloo"`` on
+    the card runs every collective through the host (gloo takes CUDA
+    tensors for all_reduce and broadcast), which lets two ranks share one
+    card, as NCCL does not. Without ``world_size`` it is a no-op (one
+    process, no group) and returns ``resolve_device(device)``. A failed
+    NCCL start raises; it is never retried on gloo."""
     dev = resolve_device(device)
     if world_size is None:
         return dev
-    if dev.type != "cuda":
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    if backend not in ("nccl", "gloo") or (backend == "nccl" and dev.type != "cuda"):
+        raise ValueError(f"backend {backend!r} on {dev.type}: NCCL runs on the card only, "
+                         "gloo on either")
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    if backend == "gloo":
         dist.init_process_group("gloo", init_method=init_method, world_size=world_size,
                                 rank=rank)
         return dev
-    dev = torch.device("cuda", rank % torch.cuda.device_count())
-    torch.cuda.set_device(dev)
     dist.init_process_group("nccl", init_method=init_method, world_size=world_size, rank=rank,
                             device_id=dev)
     return dev

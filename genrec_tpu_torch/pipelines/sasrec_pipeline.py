@@ -4,7 +4,11 @@ Counterpart of ``genrec_tpu/pipelines/sasrec_pipeline.py`` (train
 `SASRec/train.py:84-220`, evaluate `SASRec/evaluate.py:10-54`) on the port's
 single-device ``Trainer``: the losses draw dropout masks and negatives from
 the trainer's generator, on the device. Every entry point runs on the card
-unless it is given ``device="cpu"``.
+unless it is given ``device="cpu"``. Under a process group ``train`` runs
+data-parallel over ``cfg.mesh``, and with a model axis above 1 the item
+table is row-sharded over it when its rows divide the axis
+(``parallel.auto.param_shardings``); the best parameters come back whole,
+and evaluation runs on the whole model.
 """
 
 from __future__ import annotations
@@ -54,7 +58,6 @@ def train(cfg: SASRecConfig, data: Optional[InteractionData] = None,
           device=None) -> SASRecArtifacts:
     device = resolve_device(device)
     mesh = dp_shardings(cfg.mesh)
-    param_shardings(mesh)
     if data is None:
         data = read_interactions(cfg.data_path)
     tr = datasets.build_sasrec_arrays(data, cfg.max_len, "train", cfg.min_seq_len)
@@ -64,7 +67,7 @@ def train(cfg: SASRecConfig, data: Optional[InteractionData] = None,
     loss_fn, val_fn = make_loss_fns(cfg, item_num)
     trainer = Trainer(cfg.trainer, model=model, loss_fn=loss_fn, eval_loss_fn=val_fn,
                       train_data=tr.arrays, val_data=te.arrays, logger_name="sasrec",
-                      device=device, mesh=mesh)
+                      device=device, mesh=mesh, param_specs=param_shardings(mesh, model))
     result = trainer.fit()
     return SASRecArtifacts(params=result.best_params, item_num=item_num, result=result)
 

@@ -8,12 +8,15 @@ unless it is given ``device="cpu"``.
 
 Under a process group ``train`` runs data-parallel over ``cfg.mesh``
 (``parallel.auto.dp_shardings``), each rank's share of the batch through
-kernels #1 and #2; a model axis > 1 (tensor parallelism) raises. Every
-rank evaluates the whole test split; rank 0 writes the results CSV.
+kernels #1 and #2, and with a model axis above 1 tensor-parallel too
+(``parallel.auto.param_shardings``): each rank of a data row holds its
+block of the attention heads (kernels #1 and #2 on those heads) and of
+d_ff. The best parameters come back whole. Every rank evaluates the whole
+test split on the whole model; rank 0 writes the results CSV.
 
-Still to port (ROADMAP Queue 1 items 4b and 5): tensor parallelism, length
-buckets and composite widths (``target_len_buckets`` /
-``target_len_composite`` > 1 raise ``ValueError``), multi-device eval.
+Still to port (ROADMAP Queue 1 item 5): length buckets and composite
+widths (``target_len_buckets`` / ``target_len_composite`` > 1 raise
+``ValueError``), multi-device eval.
 """
 
 from __future__ import annotations
@@ -68,11 +71,13 @@ def build_trainer(cfg: TIGERConfig, train_arrays: datasets.TigerArrays,
                   mesh: Optional[Mesh] = None) -> Trainer:
     """A TIGER at ``cfg`` with weights drawn from ``cfg.trainer.seed``, and
     its Trainer over the two splits on ``device``, data-parallel over
-    ``mesh`` when given."""
+    ``mesh`` when given and tensor-parallel over its 'model' axis when that
+    is above 1."""
     _refuse_bucket_modes(cfg)
     model = TIGER(cfg, generator=torch.Generator().manual_seed(cfg.trainer.seed))
     return Trainer(cfg.trainer, model=model, loss_fn=loss_fn, train_data=train_arrays.arrays,
-                   val_data=test_arrays.arrays, logger_name="tiger", device=device, mesh=mesh)
+                   val_data=test_arrays.arrays, logger_name="tiger", device=device, mesh=mesh,
+                   param_specs=param_shardings(mesh, model))
 
 
 def train(cfg: TIGERConfig,
@@ -82,7 +87,6 @@ def train(cfg: TIGERConfig,
     device = resolve_device(device)
     _refuse_bucket_modes(cfg)
     mesh = dp_shardings(cfg.mesh)
-    param_shardings(mesh)
     if train_arrays is None:
         train_arrays = datasets.build_tiger_arrays(
             read_tiger_split(cfg.train_dataset_path), cfg.max_len, cfg.code_dim)

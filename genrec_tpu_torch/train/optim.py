@@ -12,7 +12,10 @@ optional global-norm gradient clip, each computing what optax computes:
   the square root and gives 0 where it is 0; rmsprop decays by 0.9 and
   scales by g·rsqrt(ν + eps);
 - the clip scales by max_norm / norm when the norm is not below max_norm,
-  with no +1e-6 (``optax.clip_by_global_norm``).
+  with no +1e-6 (``optax.clip_by_global_norm``); under tensor parallelism
+  the norm is the whole model's, as JAX's over global arrays: the squares
+  of the parameters cut over 'model' are summed over its group, those of
+  the replicated ones counted once.
 
 The schedule is a function of the number of updates made so far, as
 optax's: the first update uses ``schedule(0)``.
@@ -20,9 +23,10 @@ optax's: the first update uses ``schedule(0)``.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Optional
+from typing import Callable, Collection, Iterable, Optional
 
 import torch
+import torch.distributed as dist
 
 from genrec_tpu_torch.configs import TrainerConfig
 
@@ -103,12 +107,24 @@ class OptaxRMSprop(torch.optim.Optimizer):
 
 
 @torch.no_grad()
-def clip_by_global_norm_(params: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(params: Iterable[torch.Tensor], max_norm: float,
+                         sharded: Collection[torch.Tensor] = (),
+                         group=None) -> torch.Tensor:
     """optax.clip_by_global_norm on the ``.grad`` of ``params``, in place:
     unchanged when the global norm is below ``max_norm``, else scaled by
-    max_norm / norm. Returns the norm (a device scalar; no host sync)."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.sqrt(sum(g.square().sum() for g in grads))
+    max_norm / norm. Returns the norm (a device scalar; no host sync unless
+    ``group`` is given). ``sharded`` are those of ``params`` that hold one
+    block of a tensor cut over ``group`` (the mesh's 'model' group): their
+    squares are summed over the group, so the norm is the whole model's."""
+    params = [p for p in params if p.grad is not None]
+    cut = {id(p) for p in sharded}
+    zero = torch.zeros((), device=params[0].grad.device)
+    cut_sq = sum((p.grad.square().sum() for p in params if id(p) in cut), zero)
+    whole_sq = sum((p.grad.square().sum() for p in params if id(p) not in cut), zero)
+    if group is not None and cut:
+        dist.all_reduce(cut_sq, group=group)
+    norm = torch.sqrt(cut_sq + whole_sq)
+    grads = [p.grad for p in params]
     scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
     for g in grads:
         g.mul_(scale)
@@ -121,8 +137,12 @@ class TrainOptimizer:
     and ``scheduler`` are plain torch objects (their ``state_dict``s go into
     the checkpoint)."""
 
-    def __init__(self, params, cfg: TrainerConfig, steps_per_epoch: int = 1):
+    def __init__(self, params, cfg: TrainerConfig, steps_per_epoch: int = 1,
+                 sharded: Collection[torch.Tensor] = (), model_group=None):
+        """``sharded`` (those of ``params`` cut over the 'model' group
+        ``model_group``) enter the clip's norm summed over the group."""
         self.params = [p for p in params if p.requires_grad]
+        self.sharded, self.model_group = list(sharded), model_group
         name = cfg.optimizer.lower()
         b1, b2 = cfg.adam_betas
         # the schedule gives the rate itself: the group's base rate is 1
@@ -149,10 +169,11 @@ class TrainOptimizer:
 
     def step(self):
         if self.clip_norm is not None:
-            clip_by_global_norm_(self.params, self.clip_norm)
+            clip_by_global_norm_(self.params, self.clip_norm, self.sharded, self.model_group)
         self.optimizer.step()
         self.scheduler.step()
 
 
-def make_optimizer(params, cfg: TrainerConfig, steps_per_epoch: int = 1) -> TrainOptimizer:
-    return TrainOptimizer(params, cfg, steps_per_epoch)
+def make_optimizer(params, cfg: TrainerConfig, steps_per_epoch: int = 1,
+                   sharded: Collection[torch.Tensor] = (), model_group=None) -> TrainOptimizer:
+    return TrainOptimizer(params, cfg, steps_per_epoch, sharded, model_group)

@@ -41,13 +41,35 @@ reference's semantics:
   bare model's names (no ``module.``);
 - validation: each rank scores its columns and the sums are all-reduced.
 
-Still to port (ROADMAP Queue 1 item 5): length buckets, composite widths
-and ``profile_dir``. The reference's batch-factory ``fit`` is left out until
-a caller needs it.
+Tensor-parallel (``param_specs`` from ``parallel.auto.param_shardings``, a
+mesh whose 'model' axis is above 1), as the reference's ``device_put`` of
+the initialised parameters under their shardings:
+
+- every rank builds the whole model from the same seed; the Trainer cuts
+  the parameters whose spec splits them over 'model' to this rank's block
+  (``parallel.tensor.shard_model_``) before it makes the optimizer, and the
+  modules run the collectives (``models/t5.py``, ``models/sasrec.py``);
+  DDP over 'data' is unchanged, each data group holding one block;
+- the global-norm clip sums the cut parameters' squares over 'model';
+- checkpoints, ``best_params`` and ``final_params`` hold the whole tensors,
+  parameters and optimizer state alike (``parallel.tensor.gather_state``),
+  as the reference's store of global arrays does: a checkpoint resumes on
+  the same mesh (cut again on load) and loads into a one-device model.
+
+``cfg.profile_dir`` traces one epoch, ``min(first epoch of this fit + 1,
+cfg.epochs)``, as the reference does: the first one is warm-up (kernel
+builds, allocator growth). The trace (``utils/profiling.trace``) spans the
+epoch's steps and the read of its loss sums; each epoch's steps lie in a
+"train epoch <n>" range.
+
+Still to port (ROADMAP Queue 1 item 5): length buckets and composite
+widths. The reference's batch-factory ``fit`` is left out until a caller
+needs it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -60,10 +82,13 @@ from torch import nn
 from genrec_tpu_torch.configs import TrainerConfig
 from genrec_tpu_torch.device import resolve_device
 from genrec_tpu_torch.parallel.mesh import Mesh, all_reduce_sum, is_main_process, write_once
+from genrec_tpu_torch.parallel.sharding import Spec, shard_tensor
+from genrec_tpu_torch.parallel.tensor import gather_state, gather_tensor, shard_model_
 from genrec_tpu_torch.train.checkpoint import CheckpointStore
 from genrec_tpu_torch.train.optim import make_optimizer
 from genrec_tpu_torch.utils.misc import get_logger
 from genrec_tpu_torch.utils.plotting import plot_loss_curves
+from genrec_tpu_torch.utils.profiling import annotate, trace
 
 Batch = Dict[str, torch.Tensor]
 # loss_fn(model, batch, generator) -> (loss, aux); aux holds "sum_loss" and
@@ -108,7 +133,8 @@ class Trainer:
                  train_data: Dict[str, np.ndarray],
                  val_data: Optional[Dict[str, np.ndarray]] = None,
                  logger_name: str = "genrec", device=None,
-                 eval_loss_fn: Optional[LossFn] = None, mesh: Optional[Mesh] = None):
+                 eval_loss_fn: Optional[LossFn] = None, mesh: Optional[Mesh] = None,
+                 param_specs: Optional[Dict[str, Spec]] = None):
         """``train_data`` / ``val_data``: numpy arrays with one row per
         sample, uploaded to ``device`` once (the card unless ``device="cpu"``)
         and kept there as ``self.train_data`` / ``self.val_data`` (in
@@ -117,10 +143,16 @@ class Trainer:
         (model in ``.train()``) and, unless ``eval_loss_fn`` is given,
         validation (``.eval()``). ``mesh`` (``dp_shardings``) makes the run
         data-parallel over its 'data' axis; every rank passes the same
-        arrays."""
+        arrays. ``param_specs`` (``param_shardings``) makes it
+        tensor-parallel over the mesh's 'model' axis: every rank passes the
+        same whole ``model``, which is cut to this rank's shards here."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        if param_specs is not None and mesh is None:
+            raise ValueError("tensor-parallel parameter specs need a mesh (dp_shardings)")
+        self._specs = param_specs or {}
+        self._cut = shard_model_(self.model, mesh, self._specs) if param_specs else set()
         self.loss_fn = loss_fn
         self.eval_loss_fn = eval_loss_fn or loss_fn
         world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
@@ -138,7 +170,9 @@ class Trainer:
                              f"divide the data axis ({d}): padded batches shard evenly")
         n_train = len(next(iter(train_data.values())))
         self.opt = make_optimizer(self.model.parameters(), cfg,
-                                  -(-n_train // cfg.batch_size))  # steps per epoch
+                                  -(-n_train // cfg.batch_size),  # steps per epoch
+                                  [p for k, p in self.model.named_parameters() if k in self._cut],
+                                  mesh.group("model") if self._cut else None)
         self.step = 0
         self.start_epoch = 1
         self.best_val = float("inf")
@@ -173,13 +207,39 @@ class Trainer:
         return out, (n_real, n_loc)
 
     def snapshot_params(self) -> Dict[str, torch.Tensor]:
-        """A copy of the model's state_dict that later steps leave as it is."""
-        return {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+        """A copy of the model's state_dict that later steps leave as it is,
+        the whole tensors under tensor parallelism (collective: every rank
+        calls it)."""
+        return {k: v.detach().clone() for k, v in self._whole(self.model.state_dict()).items()}
+
+    def _whole(self, state):
+        return gather_state(state, self.mesh, self._specs) if self._cut else state
+
+    def _optimizer_specs(self) -> List[Spec]:
+        """The spec of each of the optimizer's parameters, in its order."""
+        return [self._specs.get(k, ()) for k, p in self.model.named_parameters()
+                if p.requires_grad]
+
+    def _map_optimizer_state(self, sd, fn):
+        """The optimizer state_dict with ``fn(tensor, spec)`` applied to each
+        per-parameter state tensor of one or more dimensions (moments,
+        accumulators: the parameter's shape), the 0-d step counts left as
+        they are."""
+        specs = self._optimizer_specs()
+        state = {i: {k: fn(v, specs[i]) if torch.is_tensor(v) and v.dim() else v
+                     for k, v in st.items()} for i, st in sd["state"].items()}
+        return dict(sd, state=state)
 
     # ------------------------------------------------------------------
     def _state_dict(self):
-        return {"model": self.model.state_dict(),
-                "optimizer": self.opt.optimizer.state_dict(),
+        """The train state with whole tensors (collective under tensor
+        parallelism: every rank calls it)."""
+        opt = self.opt.optimizer.state_dict()
+        if self._cut:
+            opt = self._map_optimizer_state(
+                opt, lambda t, spec: gather_tensor(t, spec, self.mesh))
+        return {"model": self._whole(self.model.state_dict()),
+                "optimizer": opt,
                 "scheduler": self.opt.scheduler.state_dict(),
                 "step": self.step, "epoch": self.start_epoch, "best_val": self.best_val}
 
@@ -187,8 +247,14 @@ class Trainer:
         restored = self.store.restore_latest()
         if restored is None:
             return
-        self.model.load_state_dict(restored["model"])
-        self.opt.optimizer.load_state_dict(restored["optimizer"])
+        model, opt = restored["model"], restored["optimizer"]
+        if self._cut:  # whole tensors on disk: this rank's blocks
+            model = {k: shard_tensor(v, self._specs.get(k, ()), self.mesh)
+                     for k, v in model.items()}
+            opt = self._map_optimizer_state(
+                opt, lambda t, spec: shard_tensor(t, spec, self.mesh).contiguous())
+        self.model.load_state_dict(model)
+        self.opt.optimizer.load_state_dict(opt)
         self.opt.scheduler.load_state_dict(restored["scheduler"])
         self.step = int(restored["step"])
         self.start_epoch = int(restored["epoch"]) + 1
@@ -309,22 +375,30 @@ class Trainer:
         first_epoch_s = 0.0  # warm-up epoch, excluded from steady ex/s
         first_epoch_examples = 0
 
+        initial_epoch = self.start_epoch
         for epoch in range(self.start_epoch, cfg.epochs + 1):
             epochs_run = epoch
+            # the epoch after the first of this fit: the first is warm-up
+            profiling = (cfg.profile_dir is not None
+                         and epoch == min(initial_epoch + 1, cfg.epochs))
+            if profiling:
+                self.logger.info(f"Profiling epoch {epoch} -> {cfg.profile_dir}")
             t0 = time.perf_counter()
-            mat, idx_mat = self._indices(self.train_data, self._train_meta, cfg.batch_size,
-                                         shuffle=True, seed=cfg.seed + epoch)
-            sum_loss = torch.zeros((), device=self.device)
-            sum_valid = torch.zeros((), device=self.device)
-            for idx in idx_mat:
-                sl, vl = self.train_step(self.gather(self.train_data, idx), generator)
-                sum_loss += sl
-                sum_valid += vl
+            with (trace(cfg.profile_dir) if profiling else contextlib.nullcontext()), \
+                    annotate(f"train epoch {epoch}"):
+                mat, idx_mat = self._indices(self.train_data, self._train_meta,
+                                             cfg.batch_size, shuffle=True, seed=cfg.seed + epoch)
+                sum_loss = torch.zeros((), device=self.device)
+                sum_valid = torch.zeros((), device=self.device)
+                for idx in idx_mat:
+                    sl, vl = self.train_step(self.gather(self.train_data, idx), generator)
+                    sum_loss += sl
+                    sum_valid += vl
+                # the reads synchronize: once per epoch
+                sum_loss, sum_valid = all_reduce_sum(torch.stack([sum_loss, sum_valid]),
+                                                     self._group).tolist()
             steps_run += len(idx_mat)
             n_examples = int((mat >= 0).sum())
-            # the reads synchronize: once per epoch
-            sum_loss, sum_valid = all_reduce_sum(torch.stack([sum_loss, sum_valid]),
-                                                 self._group).tolist()
             dt = time.perf_counter() - t0
             phase["train"] += dt
             total_time += dt
@@ -355,7 +429,8 @@ class Trainer:
             self.start_epoch = epoch
             tc = time.perf_counter()
             if (epoch % cfg.ckpt_every_epochs == 0) or epoch == cfg.epochs:
-                write_once(lambda: self.store.save_latest(self.step, self._state_dict()))
+                state = self._state_dict()
+                write_once(lambda: self.store.save_latest(self.step, state))
             phase["ckpt"] += time.perf_counter() - tc
 
             if epoch_end_callback is not None:
@@ -376,8 +451,8 @@ class Trainer:
                     if cfg.ckpt_every_epochs > 1 and epoch % cfg.ckpt_every_epochs != 0:
                         # the cadence skipped this epoch's latest-state save;
                         # persist it so resume starts from the stopping point
-                        write_once(lambda: self.store.save_latest(self.step,
-                                                                  self._state_dict()))
+                        state = self._state_dict()
+                        write_once(lambda: self.store.save_latest(self.step, state))
                     break
 
         if is_main_process():

@@ -1,6 +1,7 @@
 """The port's distributed layer on a 2 × 2 mesh of four gloo ranks, against
 the JAX package's on a 2 × 2 mesh of the emulated CPU devices
-(`tests/test_parallel.py`, all but its tensor-parallel test).
+(`tests/test_parallel.py`, all but its tensor-parallel test, which
+`test_torch_tensor_parallel.py` holds).
 
 The four ranks are processes that run this file as a script, once per
 module: each joins a group through a ``file://`` rendezvous, runs every
@@ -86,7 +87,7 @@ def _large_batch(item_num):
 # rank side: run as ``python test_torch_parallel.py <rank> <world> <rdv> <out>``
 # --------------------------------------------------------------------------
 
-def _rank_checks(rank: int) -> dict:
+def _rank_checks(rank: int, out_dir: str) -> dict:
     import torch.distributed as dist
 
     from genrec_tpu_torch import configs
@@ -99,7 +100,6 @@ def _rank_checks(rank: int) -> dict:
     from genrec_tpu_torch.parallel.mesh import (all_reduce_sum, make_global_array, make_mesh,
                                                 process_rows)
     from genrec_tpu_torch.parallel.sharding import shard_batch, shard_params
-    from genrec_tpu_torch.pipelines import sasrec_pipeline, tiger_pipeline
 
     res = {}
     mesh = make_mesh(configs.MeshConfig(data_axis=2, model_axis=2))
@@ -247,19 +247,49 @@ def _rank_checks(rank: int) -> dict:
     res["global_array"] = make_global_array(arr, mesh, device="cpu").numpy()
     res["local_array"] = make_global_array(arr[:3], mesh, process_local=True, device="cpu").numpy()
 
-    # tensor parallelism raises in the pipelines, before any data is read
-    for name, pipe, cfg in (
-            ("tiger", tiger_pipeline, configs.TIGERConfig(
-                train_dataset_path="/nonexistent/train.h5",
-                mesh=configs.MeshConfig(data_axis=2, model_axis=2))),
-            ("sasrec", sasrec_pipeline, configs.SASRecConfig(
-                data_path="/nonexistent/data.h5",
-                mesh=configs.MeshConfig(data_axis=2, model_axis=2)))):
+    res["tp"] = _tensor_parallel_runs(os.path.join(out_dir, "tp"))
+    return res
+
+
+def _tensor_parallel_runs(out: str) -> dict:
+    """TIGER and the parity SASRec trained by their pipelines on the 2 × 2
+    mesh, tensor-parallel, and with model axis 1: TIGER on the 4 × 1 mesh
+    (replicated datasets and dropout 0, so both see the same global
+    batches), SASRec on the same 2 × 2 mesh with its table left whole (its
+    negatives are drawn per data index, so the data axis must match)."""
+    from genrec_tpu_torch import configs
+    from genrec_tpu_torch.data import datasets, synthetic, tiger_tokens
+    from genrec_tpu_torch.pipelines import sasrec_pipeline, tiger_pipeline
+
+    trainer = dict(epochs=1, batch_size=16, eval_batch_size=16, lr=3e-3, seed=0,
+                   shard_dataset=False)
+    corpus = synthetic.make_interactions(num_users=40, num_items=699, min_len=4, max_len=8,
+                                         seed=2)
+    codes = synthetic.make_codes(699, seed=1)
+    tr, te = tiger_tokens.build_tiger_splits(corpus.item_id_lists, corpus.user_ids, codes)
+    tr, te = (datasets.build_tiger_arrays(tr, 4, 4),
+              datasets.build_tiger_arrays(te, 4, 4, max_target_items=1))
+    arch = configs.T5ArchConfig(num_layers=1, num_decoder_layers=1, d_model=32, d_ff=64,
+                                num_heads=2, d_kv=16, dropout_rate=0.0)
+    res = {}
+    for mesh in ((2, 2), (4, 1)):
+        cfg = configs.TIGERConfig(arch=arch, max_len=4, mesh=configs.MeshConfig(*mesh),
+                                  trainer=configs.TrainerConfig(
+                                      ckpt_dir=os.path.join(out, f"tiger{mesh}"), **trainer))
+        res[f"tiger{mesh}"] = tiger_pipeline.train(cfg, tr, te, "cpu").result.train_losses
+    keep = sasrec_pipeline.param_shardings
+    for name in ("cut", "whole"):
+        cfg = configs.SASRecConfig(d=16, num_blocks=1, num_heads=1, mlp_layer=32, max_len=8,
+                                   mesh=configs.MeshConfig(2, 2), trainer=configs.TrainerConfig(
+                                       ckpt_dir=os.path.join(out, f"sasrec_{name}"), **trainer))
+        if name == "whole":
+            sasrec_pipeline.param_shardings = lambda mesh, model: None
         try:
-            pipe.train(cfg, device="cpu")
-            res[f"tp_{name}"] = "trained"
-        except NotImplementedError as err:
-            res[f"tp_{name}"] = str(err)
+            res[f"sasrec_{name}"] = sasrec_pipeline.train(cfg, corpus,
+                                                          "cpu").result.train_losses
+        finally:
+            sasrec_pipeline.param_shardings = keep
+    res["item_num"] = corpus.max_item_id
     return res
 
 
@@ -271,16 +301,18 @@ def _rank_main(rank: int, world: int, rdv: str, out: str) -> None:
     torch.set_num_threads(1)
     initialize_multihost(f"file://{rdv}", world, rank, device="cpu")
     try:
-        torch.save(_rank_checks(rank), os.path.join(out, f"rank{rank}.pt"))
+        torch.save(_rank_checks(rank, out), os.path.join(out, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
 
-def spawn_ranks(script: str, world: int, out: pathlib.Path, timeout: int = 240) -> list:
+def spawn_ranks(script: str, world: int, out: pathlib.Path, timeout: int = 240,
+                while_waiting=None) -> list:
     """Run ``script`` as ``world`` gloo ranks sharing a ``file://`` rendezvous
     under ``out``; returns each rank's saved results. A rank that fails ends
     the others at once (they would wait in a collective); its output is in
-    the assertion message."""
+    the assertion message. ``while_waiting()``, when given, runs in this
+    process while the ranks run."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     logs = [out / f"rank{r}.log" for r in range(world)]
     procs = []
@@ -291,6 +323,8 @@ def spawn_ranks(script: str, world: int, out: pathlib.Path, timeout: int = 240) 
                 env=env, stdout=f, stderr=subprocess.STDOUT))
     deadline = time.monotonic() + timeout
     try:
+        if while_waiting is not None:
+            while_waiting()
         while any(p.poll() is None for p in procs):
             if any(p.poll() for p in procs) or time.monotonic() > deadline:
                 break
@@ -797,16 +831,12 @@ def test_process_rows_and_make_global_array(ranks):
         np.testing.assert_array_equal(res["local_array"], arr[:3])
 
 
-def test_tensor_parallel_raises_before_reading_data(ranks):
-    """A model axis > 1 asks for the tensor-parallel layout, which is not
-    ported: the TIGER and SASRec pipelines raise it, not the missing file."""
-    from genrec_tpu_torch.parallel.auto import param_shardings
-    from genrec_tpu_torch.parallel.mesh import Mesh
-
+def test_tensor_parallel_train_gives_the_model_axis_1_losses(ranks):
+    """A model axis of 2 trains (TIGER's heads and d_ff, the parity SASRec's
+    700-row table split over it) to the losses of model axis 1."""
     for res in ranks:
-        for name in ("tiger", "sasrec"):
-            assert "item 4b" in res[f"tp_{name}"], res[f"tp_{name}"]
-    assert param_shardings(None) is None
-    assert param_shardings(Mesh(("data", "model"), (4, 1), (0, 0), (None, None))) is None
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        param_shardings(Mesh(("data", "model"), (2, 2), (0, 0), (None, None)))
+        tp = res["tp"]
+        assert tp["item_num"] == 699
+        np.testing.assert_allclose(tp["tiger(2, 2)"], tp["tiger(4, 1)"], rtol=2e-4)
+        np.testing.assert_allclose(tp["sasrec_cut"], tp["sasrec_whole"], rtol=2e-4)
+        assert np.isfinite(tp["tiger(2, 2)"] + tp["sasrec_cut"]).all()
