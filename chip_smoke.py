@@ -133,11 +133,30 @@ which asserts; any failure exits non-zero and prints no result:
 18. ``[profile-dir]``: ``tiger_pipeline.train`` for 2 epochs with
     ``trainer.profile_dir``: one trace file, the second epoch's range only,
     #1 and #2 at 6 kernel events a step of that epoch, the reduction at 4;
-19. print one JSON line of kernel records, the card line, and last the
+19. ``[len-buckets]``, right after 6: ``tiger_pipeline.train`` at
+    ``TIGERConfig(target_len_buckets=4)`` for 2 epochs at batch 256 and
+    dropout 0.1 on the TIGER corpus of 6: the buckets' widths (44, 80, 120,
+    156) and rows, 18 steps an epoch, 6 + 6 launches of #1 and #2 and 4 of
+    the reduction a step plus validation, the (Lq, Lk) pairs of #1 and #2
+    (44 and 120 among them), falling losses, examples/s beside 6's, a
+    profiled step at each width; #1 and #2 against their plain versions at
+    (4·256, 44 and 120, 16) decoder self-attention and (4·256, 44 → 80, 16)
+    cross-attention, with the f32 dropout mask and without, at the
+    tolerances of 3; one epoch of the first 64 rows at batch 16, 2 buckets
+    and dropout 0 on the card and on the CPU, losses within 1e-4 relative;
+20. ``[composite]``: the same at ``target_len_composite=4`` (width groups
+    with half their slots filled by shorter rows): the widths that ran, the
+    steps, launches, losses, examples/s, a profiled step at each width and
+    the 64-row epoch against the CPU;
+21. ``[data]``, before 4: the native batch packer built with g++ from
+    ``genrec_tpu_torch/native/packer.cpp``; the TIGER, SASRec and DenseT5
+    train arrays of the TIGER corpus bit-equal to the Python path's, each
+    path's seconds;
+22. print one JSON line of kernel records, the card line, and last the
     ``{"ok": true, "device": ...}`` line.
 
 Kernel launch counts are set to 0 just before each of the paths 5-13 and
-15-18 and read just after, and must equal what the path ran.
+15-20 and read just after, and must equal what the path ran.
 
 TF32 is off for matmuls and cuDNN throughout, so f32 means f32, and a bf16
 GEMM sums in f32 (``allow_bf16_reduced_precision_reduction`` off), as XLA's
@@ -452,6 +471,69 @@ def fwd_error_sources(a, got) -> dict:
     return out
 
 
+def fwd_case_check(name, a, *, repeat=False, detail=False) -> dict:
+    """Kernel #1 against its plain version at one case (within ``TOL``, or
+    ``WIDE_TOL`` at D > 64) and against the f64 forward; its time, device
+    time, both bounds and SDPA's (without a dropout mask); with ``repeat``
+    two calls bit-identical; with ``detail`` its shared memory, blocks per
+    SM and where its distance from f64 comes from."""
+    from genrec_tpu_torch.ops import t5_attention as ta
+
+    kw = dict(causal=a["causal"], dropout_mask=a["dropout_mask"])
+    args = (a["qf"], a["kf"], a["vf"], a["h"], a["pos_bias"], a["kv_mask"])
+    rate = 0.1 if a["dropout_mask"] is not None else 0.0
+    out = ta.fused_t5_attention_flat(*args, dropout_rate=rate, **kw)
+    ref = ta.t5_attention_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all(), f"{name}: non-finite kernel output"
+    err = (out - ref).abs().max().item()
+    exact = f64_forward(a)
+    err64, plain64 = [(x.double() - exact).abs().max().item() for x in (out, ref)]
+    del exact
+    tol = TOL if a["qf"].shape[2] <= 64 else WIDE_TOL
+    assert err <= tol, f"{name}: kernel vs plain max abs {err} > {tol}"
+    if repeat:
+        again = ta.fused_t5_attention_flat(*args, dropout_rate=rate, **kw)
+        assert torch.equal(out, again), f"{name}: two calls differ"
+        print(f"[kernel] t5_attention_fwd {name}: out bit-identical between two calls")
+    iters = 200 if name in ("serve", "bench", "dense_serve") else 20
+    kernel = lambda: ta.fused_t5_attention_flat(*args, dropout_rate=rate, **kw)  # noqa: E731
+    plain = lambda: ta.t5_attention_reference(*args, **kw)  # noqa: E731
+    fns = [kernel, plain]
+    if a["dropout_mask"] is None:  # no library call takes a given dropout mask
+        q4, k4, v4, add = sdpa_inputs(a)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        fns.append(lambda: sdpa(q4, k4, v4, attn_mask=add, scale=1.0))
+    ms, plain_ms, library_ms = [cuda_ms(f, iters) for f in fns] + [None] * (3 - len(fns))
+    dev = [device_ms(f) for f in fns] + [None] * (3 - len(fns))
+    bounds = attention_bound_ms(a)
+    (bound_ms, bound_by), (f32_ms, f32_by) = bounds["tf32x3"], bounds["f32"]
+    res = dict(max_abs_err=err, tol=tol, f64_err=err64, plain_f64_err=plain64,
+               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               bound_ms_f32=f32_ms, library_ms=library_ms, device_ms=dev[0],
+               plain_device_ms=dev[1], library_device_ms=dev[2])
+    print(f"[kernel] t5_attention_fwd {name} shape={tuple(a['qf'].shape)} "
+          f"lk={a['kf'].shape[1]} dropout={a['dropout_mask'] is not None} "
+          f"max_abs_err={err:.3e} (tolerance {tol:.0e}; against f64: kernel {err64:.3e}, "
+          f"plain {plain64:.3e}) | per call (CUDA events): ms={ms:.5f} "
+          f"plain_ms={plain_ms:.5f} library_ms={library_ms} | device only (profiler): "
+          f"ms={dev[0]:.5f} plain_ms={dev[1]:.5f} library_ms={dev[2]} | "
+          f"bound_ms={bound_ms:.6f} ({bound_by}, 3xTF32 products), f32-SIMT "
+          f"{f32_ms:.6f} ({f32_by})")
+    if detail:
+        lq, lk, d = a["qf"].shape[1], a["kf"].shape[1], a["qf"].shape[2]
+        smem, per_sm = ta.fwd_occupancy(lq, lk, d)
+        res.update(smem_bytes=smem, blocks_per_sm=per_sm)
+        print(f"[kernel] t5_attention_fwd {name}: {smem} bytes of shared memory per block, "
+              f"{per_sm} blocks resident per SM")
+        src = fwd_error_sources(a, out)
+        res["error_sources"] = src
+        print(f"[kernel] t5_attention_fwd {name} against the f64 forward (max|f64| "
+              f"{src['max_abs_f64']:.4f}), max|x - f64|: " + "; ".join(
+                  f"{key} {e:.3e}" for key, e in src.items() if key != "max_abs_f64"))
+    return res
+
+
 def phase_kernels():
     """Build every kernel; then kernel #1 against its plain version on the
     card (within ``TOL``) at the serving shapes, the three train shapes of
@@ -526,60 +608,9 @@ def phase_kernels():
         attention_case("bias+100_l21", 4, 3, DENSE_L, DENSE_L, 16, bias_offset=100.0,
                        right_pad=True, seed=43),
     ]
-    results = {}
-    for name, a in cases:
-        kw = dict(causal=a["causal"], dropout_mask=a["dropout_mask"])
-        args = (a["qf"], a["kf"], a["vf"], a["h"], a["pos_bias"], a["kv_mask"])
-        rate = 0.1 if a["dropout_mask"] is not None else 0.0
-        out = ta.fused_t5_attention_flat(*args, dropout_rate=rate, **kw)
-        ref = ta.t5_attention_reference(*args, **kw)
-        torch.cuda.synchronize()
-        assert torch.isfinite(out).all(), f"{name}: non-finite kernel output"
-        err = (out - ref).abs().max().item()
-        exact = f64_forward(a)
-        err64, plain64 = [(x.double() - exact).abs().max().item() for x in (out, ref)]
-        del exact
-        tol = TOL if a["qf"].shape[2] <= 64 else WIDE_TOL
-        assert err <= tol, f"{name}: kernel vs plain max abs {err} > {tol}"
-        if name in ("enc_train", "dec_self_train", *PREFIX_SHAPES, *DENSE_SHAPES):
-            again = ta.fused_t5_attention_flat(*args, dropout_rate=rate, **kw)
-            assert torch.equal(out, again), f"{name}: two calls differ"
-            print(f"[kernel] t5_attention_fwd {name}: out bit-identical between two calls")
-        iters = 200 if name in ("serve", "bench", "dense_serve") else 20
-        kernel = lambda: ta.fused_t5_attention_flat(*args, dropout_rate=rate, **kw)  # noqa: E731
-        plain = lambda: ta.t5_attention_reference(*args, **kw)  # noqa: E731
-        fns = [kernel, plain]
-        if a["dropout_mask"] is None:  # no library call takes a given dropout mask
-            q4, k4, v4, add = sdpa_inputs(a)
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            fns.append(lambda: sdpa(q4, k4, v4, attn_mask=add, scale=1.0))
-        ms, plain_ms, library_ms = [cuda_ms(f, iters) for f in fns] + [None] * (3 - len(fns))
-        dev = [device_ms(f) for f in fns] + [None] * (3 - len(fns))
-        bounds = attention_bound_ms(a)
-        (bound_ms, bound_by), (f32_ms, f32_by) = bounds["tf32x3"], bounds["f32"]
-        results[name] = dict(max_abs_err=err, tol=tol, f64_err=err64, plain_f64_err=plain64,
-                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                             bound_ms_f32=f32_ms, library_ms=library_ms, device_ms=dev[0],
-                             plain_device_ms=dev[1], library_device_ms=dev[2])
-        print(f"[kernel] t5_attention_fwd {name} shape={tuple(a['qf'].shape)} "
-              f"lk={a['kf'].shape[1]} dropout={a['dropout_mask'] is not None} "
-              f"max_abs_err={err:.3e} (tolerance {tol:.0e}; against f64: kernel {err64:.3e}, "
-              f"plain {plain64:.3e}) | per call (CUDA events): ms={ms:.5f} "
-              f"plain_ms={plain_ms:.5f} library_ms={library_ms} | device only (profiler): "
-              f"ms={dev[0]:.5f} plain_ms={dev[1]:.5f} library_ms={dev[2]} | "
-              f"bound_ms={bound_ms:.6f} ({bound_by}, 3xTF32 products), f32-SIMT "
-              f"{f32_ms:.6f} ({f32_by})")
-        if name in (*FWD_TRAIN, "dense_train"):
-            lq, lk, d = a["qf"].shape[1], a["kf"].shape[1], a["qf"].shape[2]
-            smem, per_sm = ta.fwd_occupancy(lq, lk, d)
-            results[name].update(smem_bytes=smem, blocks_per_sm=per_sm)
-            print(f"[kernel] t5_attention_fwd {name}: {smem} bytes of shared memory per block, "
-                  f"{per_sm} blocks resident per SM")
-            src = fwd_error_sources(a, out)
-            results[name]["error_sources"] = src
-            print(f"[kernel] t5_attention_fwd {name} against the f64 forward (max|f64| "
-                  f"{src['max_abs_f64']:.4f}), max|x - f64|: " + "; ".join(
-                      f"{key} {e:.3e}" for key, e in src.items() if key != "max_abs_f64"))
+    results = {name: fwd_case_check(
+        name, a, repeat=name in ("enc_train", "dec_self_train", *PREFIX_SHAPES, *DENSE_SHAPES),
+        detail=name in (*FWD_TRAIN, "dense_train")) for name, a in cases}
     for name in (*FWD_TRAIN, "dense_train"):
         r, r0 = results[name], results[f"{name}_no_dropout"]
         print(f"[kernel] t5_attention_fwd {name}: device ms {r['device_ms']:.5f} with the dropout "
@@ -833,6 +864,77 @@ def phase_dbias_reduce():
                 plain_device_ms=dev[1], library_device_ms=dev[2])
 
 
+def bwd_case_check(name, a, *, repeat=False, detail=False) -> dict:
+    """Kernel #2 (and its dbias reduction) against its plain version at one
+    case (within ``BWD_REL``·max|plain| + ``TOL``); its time, device time,
+    both bounds and the SDPA backward's (without a dropout mask); with
+    ``repeat`` two calls bit-identical; with ``detail`` its shared memory,
+    blocks per SM and where its distance from the f64 backward comes from."""
+    from genrec_tpu_torch.ops import t5_attention as ta
+
+    args = (a["qf"], a["kf"], a["vf"], a["h"], a["pos_bias"], a["kv_mask"], a["do"])
+    kw = dict(causal=a["causal"], dropout_mask=a["dropout_mask"])
+    got = ta.t5_attention_bwd(*args, **kw)
+    want = ta.t5_attention_bwd_reference(*args, **kw)
+    torch.cuda.synchronize()
+    errs, abs_errs = [], []
+    for gname, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert (g is None) == (w is None), f"{name}: {gname} given on one side only"
+        if g is None:
+            continue
+        assert torch.isfinite(g).all(), f"{name}: non-finite {gname}"
+        err, scale = (g - w).abs().max().item(), w.abs().max().item()
+        assert err <= BWD_REL * scale + TOL, (
+            f"{name}: {gname} kernel vs plain max abs {err} > {BWD_REL}*{scale}+{TOL}")
+        errs.append(err / (scale + 1e-30))
+        abs_errs.append(err)
+    rel = max(errs)
+    kernel = lambda: ta.t5_attention_bwd(*args, **kw)  # noqa: E731
+    plain = lambda: ta.t5_attention_bwd_reference(*args, **kw)  # noqa: E731
+    fns = [kernel, plain]
+    lib_note = "a given dropout mask: no library call takes one"
+    if a["dropout_mask"] is None:
+        lib, why = sdpa_backward(a)
+        lib_note = why or "SDPA backward, bias gradient through the additive mask"
+        if lib is not None:
+            fns.append(lib)
+    if repeat:
+        again = ta.t5_attention_bwd(*args, **kw)
+        same = [g is None or torch.equal(g, h) for g, h in zip(got, again)]
+        assert all(same), f"{name}: two calls differ in (dq, dk, dv, dbias): {same}"
+        print(f"[kernel] t5_attention_bwd {name}: dq, dk, dv and dbias bit-identical "
+              f"between two calls")
+    iters = 20
+    ms, plain_ms, library_ms = [cuda_ms(f, iters) for f in fns] + [None] * (3 - len(fns))
+    dev = [device_ms(f, 10) for f in fns] + [None] * (3 - len(fns))
+    bounds = bwd_bound_ms(a)
+    (bound_ms, bound_by), (f32_ms, f32_by) = bounds["tf32x3"], bounds["f32"]
+    res = dict(max_rel_err=rel, max_abs_err=max(abs_errs), ms=ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               bound_ms_f32=f32_ms, library_ms=library_ms, device_ms=dev[0],
+               plain_device_ms=dev[1], library_device_ms=dev[2])
+    print(f"[kernel] t5_attention_bwd {name} q={tuple(a['qf'].shape)} "
+          f"lk={a['kf'].shape[1]} dropout={a['dropout_mask'] is not None} "
+          f"max_err/max|ref|={rel:.3e} | per call (CUDA events): ms={ms:.5f} "
+          f"plain_ms={plain_ms:.5f} library_ms={library_ms} | device only (profiler): "
+          f"ms={dev[0]:.5f} plain_ms={dev[1]:.5f} library_ms={dev[2]} | "
+          f"bound_ms={bound_ms:.6f} ({bound_by}, 3xTF32 products), f32-SIMT "
+          f"{f32_ms:.6f} ({f32_by}) | library: {lib_note}")
+    if detail:
+        lq, lk, d = a["qf"].shape[1], a["kf"].shape[1], a["qf"].shape[2]
+        smem, per_sm = ta.bwd_occupancy(lq, lk, d)
+        res.update(smem_bytes=smem, blocks_per_sm=per_sm)
+        print(f"[kernel] t5_attention_bwd {name}: {smem} bytes of shared memory per block, "
+              f"{per_sm} blocks resident per SM")
+        src = bwd_error_sources(a, got)
+        res["error_sources"] = src
+        print(f"[kernel] t5_attention_bwd {name} against the f64 backward, max|x - f64| / "
+              f"max|f64| of " + ", ".join(src["kernel"]) + ": " + "; ".join(
+                  f"{key} " + " ".join(f"{e:.3e}" for e in errs.values())
+                  for key, errs in src.items()))
+    return res
+
+
 def phase_bwd_kernels():
     """Kernel #2 against its plain version on the card, at the three train
     shapes of TIGERConfig() at batch 256, the encoder and cross-attention
@@ -874,68 +976,9 @@ def phase_bwd_kernels():
         bwd_case("bias+100_l21", 4, 3, DENSE_L, DENSE_L, 16, bias_offset=100.0, right_pad=True,
                  seed=43),
     ]
-    results = {}
-    for name, a in cases:
-        args = (a["qf"], a["kf"], a["vf"], a["h"], a["pos_bias"], a["kv_mask"], a["do"])
-        kw = dict(causal=a["causal"], dropout_mask=a["dropout_mask"])
-        got = ta.t5_attention_bwd(*args, **kw)
-        want = ta.t5_attention_bwd_reference(*args, **kw)
-        torch.cuda.synchronize()
-        errs, abs_errs = [], []
-        for gname, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
-            assert (g is None) == (w is None), f"{name}: {gname} given on one side only"
-            if g is None:
-                continue
-            assert torch.isfinite(g).all(), f"{name}: non-finite {gname}"
-            err, scale = (g - w).abs().max().item(), w.abs().max().item()
-            assert err <= BWD_REL * scale + TOL, (
-                f"{name}: {gname} kernel vs plain max abs {err} > {BWD_REL}*{scale}+{TOL}")
-            errs.append(err / (scale + 1e-30))
-            abs_errs.append(err)
-        rel = max(errs)
-        kernel = lambda: ta.t5_attention_bwd(*args, **kw)  # noqa: E731
-        plain = lambda: ta.t5_attention_bwd_reference(*args, **kw)  # noqa: E731
-        fns = [kernel, plain]
-        lib_note = "a given dropout mask: no library call takes one"
-        if a["dropout_mask"] is None:
-            lib, why = sdpa_backward(a)
-            lib_note = why or "SDPA backward, bias gradient through the additive mask"
-            if lib is not None:
-                fns.append(lib)
-        if name in ("enc_train", "dec_self_train", *PREFIX_SHAPES, "dense_train"):
-            again = ta.t5_attention_bwd(*args, **kw)
-            same = [g is None or torch.equal(g, h) for g, h in zip(got, again)]
-            assert all(same), f"{name}: two calls differ in (dq, dk, dv, dbias): {same}"
-            print(f"[kernel] t5_attention_bwd {name}: dq, dk, dv and dbias bit-identical "
-                  f"between two calls")
-        iters = 20
-        ms, plain_ms, library_ms = [cuda_ms(f, iters) for f in fns] + [None] * (3 - len(fns))
-        dev = [device_ms(f, 10) for f in fns] + [None] * (3 - len(fns))
-        bounds = bwd_bound_ms(a)
-        (bound_ms, bound_by), (f32_ms, f32_by) = bounds["tf32x3"], bounds["f32"]
-        results[name] = dict(max_rel_err=rel, max_abs_err=max(abs_errs), ms=ms,
-                             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                             bound_ms_f32=f32_ms, library_ms=library_ms, device_ms=dev[0],
-                             plain_device_ms=dev[1], library_device_ms=dev[2])
-        print(f"[kernel] t5_attention_bwd {name} q={tuple(a['qf'].shape)} "
-              f"lk={a['kf'].shape[1]} dropout={a['dropout_mask'] is not None} "
-              f"max_err/max|ref|={rel:.3e} | per call (CUDA events): ms={ms:.5f} "
-              f"plain_ms={plain_ms:.5f} library_ms={library_ms} | device only (profiler): "
-              f"ms={dev[0]:.5f} plain_ms={dev[1]:.5f} library_ms={dev[2]} | "
-              f"bound_ms={bound_ms:.6f} ({bound_by}, 3xTF32 products), f32-SIMT "
-              f"{f32_ms:.6f} ({f32_by}) | library: {lib_note}")
-        if name in (*TRAIN_SHAPES, "dense_train"):
-            lq, lk, d = a["qf"].shape[1], a["kf"].shape[1], a["qf"].shape[2]
-            smem, per_sm = ta.bwd_occupancy(lq, lk, d)
-            results[name].update(smem_bytes=smem, blocks_per_sm=per_sm)
-            print(f"[kernel] t5_attention_bwd {name}: {smem} bytes of shared memory per block, "
-                  f"{per_sm} blocks resident per SM")
-            src = bwd_error_sources(a, got)
-            results[name]["error_sources"] = src
-            print(f"[kernel] t5_attention_bwd {name} against the f64 backward, max|x - f64| / "
-                  f"max|f64| of " + ", ".join(src["kernel"]) + ": " + "; ".join(
-                      f"{key} " + " ".join(f"{e:.3e}" for e in errs.values())
-                      for key, errs in src.items()))
+    results = {name: bwd_case_check(
+        name, a, repeat=name in ("enc_train", "dec_self_train", *PREFIX_SHAPES, "dense_train"),
+        detail=name in (*TRAIN_SHAPES, "dense_train")) for name, a in cases}
     for name in (*TRAIN_SHAPES, "dense_train"):
         r0 = results[f"{name}_no_dropout"]
         print(f"[kernel] t5_attention_bwd {name} without dropout: kernel {r0['ms']:.5f} ms "
@@ -2206,6 +2249,255 @@ def phase_train(tmp, tr, te, codes):
     return dict(fwd=fwd, bwd=bwd, reduce=reduce, examples_s=res.steady_examples_per_sec,
                 ms_step=ms_step, busy=busy, train_losses=res.train_losses,
                 recall10=metrics["Recall@10"], device_ms=None if prof is None else prof[0] / 1e3)
+
+
+WIDTH_MODES = 4   # [len-buckets], [composite]: TIGERConfig's target_len_buckets / _composite
+MODE_EPOCHS = 2   # [len-buckets], [composite]: epochs of the main path
+MODE_SLICE = 64   # rows of the card-against-CPU epoch of each mode, at batch 16 and 2 widths
+MODE_SLICE_B = 16
+# the bucket widths the TIGER corpus gives at 4 buckets that the train shapes lack: (name,
+# Lq, Lk, bias, causal bias, pad, seed); 44 and 120 rows fill 16-row strips partly
+BUCKET_CASES = (("dec_self_44", 44, 44, True, True, False, 51),
+                ("dec_self_120", 120, 120, True, True, False, 52),
+                ("cross_44", 44, 80, False, False, True, 53),
+                ("cross_120", 120, 80, False, False, True, 54))
+BUCKET_SHAPES = tuple(c[0] for c in BUCKET_CASES)
+
+
+@contextlib.contextmanager
+def kernel_shapes():
+    """The (Lq, Lk) of every launch of kernels #1 and #2 while inside, by
+    kernel: a record beside the launch counts, which it does not change."""
+    from genrec_tpu_torch.ops import t5_attention as ta
+
+    seen = {"fwd": set(), "bwd": set()}
+    launch, launch_bwd = ta._launch, ta._launch_bwd
+
+    def fwd(qf, kf, *rest):
+        seen["fwd"].add((qf.shape[1], kf.shape[1]))
+        return launch(qf, kf, *rest)
+
+    def bwd(qf, kf, *rest):
+        seen["bwd"].add((qf.shape[1], kf.shape[1]))
+        return launch_bwd(qf, kf, *rest)
+
+    ta._launch, ta._launch_bwd = fwd, bwd
+    try:
+        yield seen
+    finally:
+        ta._launch, ta._launch_bwd = launch, launch_bwd
+
+
+def _mode_cfg(tmp, ckpt, field, n, *, epochs, batch, dropout):
+    """TIGERConfig() with ``field`` (target_len_buckets or
+    target_len_composite) at ``n``, dropout ``dropout``, seed 0."""
+    from genrec_tpu_torch.configs import TIGERConfig
+
+    base = TIGERConfig()
+    return dataclasses.replace(
+        base, arch=dataclasses.replace(base.arch, dropout_rate=dropout), **{field: n},
+        trainer=dataclasses.replace(base.trainer, epochs=epochs, batch_size=batch,
+                                    eval_batch_size=batch, ckpt_dir=os.path.join(tmp, ckpt),
+                                    seed=0))
+
+
+def _slice_epoch_card_vs_cpu(tag, field, tmp, tr, te):
+    """One epoch of ``tiger_pipeline.train`` on the first ``MODE_SLICE``
+    rows of both splits at batch 16, 2 widths and dropout 0, on the card and
+    on the CPU from the same seeded weights: the epoch's train and
+    validation losses within 1e-4 relative."""
+    from genrec_tpu_torch.data.datasets import TigerArrays
+    from genrec_tpu_torch.pipelines import tiger_pipeline
+
+    def head(a):
+        return TigerArrays(*(x[:MODE_SLICE] for x in (a.input_ids, a.attention_mask, a.labels,
+                                                       a.user_ids)))
+
+    def epoch(dev):
+        cfg = _mode_cfg(tmp, f"{tag}_slice_{dev}", field, 2, epochs=1, batch=MODE_SLICE_B,
+                        dropout=0.0)
+        r = tiger_pipeline.train(cfg, head(tr), head(te), device=dev).result
+        return r.train_losses + r.val_losses
+
+    card, cpu = epoch("cuda"), epoch("cpu")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    print(f"[{tag}] {MODE_SLICE} rows, B={MODE_SLICE_B}, 2 widths, dropout 0, 1 epoch: train "
+          f"and val loss card {[round(x, 7) for x in card]} CPU {[round(x, 7) for x in cpu]}, "
+          f"largest relative difference {rel:.2e} (held at 1e-4)")
+    assert rel <= 1e-4 and all(np.isfinite(card)), (tag, card, cpu)
+    return rel
+
+
+def phase_width_mode(tag, field, tmp, tr, te, train):
+    """TIGER training in one of the trainer's width modes at full width:
+    ``tiger_pipeline.train`` at ``field`` = 4 (target_len_buckets: each
+    length bucket at its own decoder width; target_len_composite: width
+    groups with half their rows drawn from shorter groups), batch 256,
+    dropout 0.1, 2 epochs on the card. Kernel launch counts are set to 0
+    just before and read just after; the (Lq, Lk) pairs of #1 and #2 are
+    recorded. Then a profiled step at each width beside the flat step of
+    ``[train]``, and the 64-row epoch against the CPU."""
+    from genrec_tpu_torch.data import datasets
+    from genrec_tpu_torch.data.datasets import num_batches
+    from genrec_tpu_torch.ops import t5_attention as ta
+    from genrec_tpu_torch.pipelines import tiger_pipeline
+    from genrec_tpu_torch.train.trainer import Trainer
+
+    cfg = _mode_cfg(tmp, f"{tag}_ckpt", field, WIDTH_MODES, epochs=MODE_EPOCHS, batch=BATCH,
+                    dropout=0.1)
+    if field == "target_len_buckets":
+        buckets = datasets.bucket_by_target_len(tr.arrays, WIDTH_MODES, cfg.code_dim)
+        widths = [b["labels"].shape[1] for b in buckets]
+        rows = [len(b["labels"]) for b in buckets]
+        per_epoch = [sum(num_batches(n, BATCH) for n in rows)] * MODE_EPOCHS
+        print(f"[{tag}] bucket widths {widths} holding {rows} rows: "
+              + " + ".join(str(num_batches(n, BATCH)) for n in rows)
+              + f" = {per_epoch[0]} steps an epoch at B={BATCH} (flat: "
+              f"{num_batches(len(tr.input_ids), BATCH)})")
+        assert per_epoch[0] == 18, per_epoch
+    else:
+        row_w, widths = datasets.target_len_widths(tr.arrays, WIDTH_MODES, cfg.code_dim)
+        plans = [Trainer._composite_plan(row_w, widths, BATCH, cfg.trainer.composite_mix,
+                                         cfg.trainer.seed + e) for e in range(1, MODE_EPOCHS + 1)]
+        per_epoch = [sum(len(m) for _, m in plan) for plan in plans]
+        widths = sorted({w for plan in plans for w, _ in plan})  # a group may drain
+        print(f"[{tag}] group widths {widths}; epoch 1's groups (width: rows, steps) "
+              + ", ".join(f"{w}: {int((m >= 0).sum())}, {len(m)}" for w, m in plans[0])
+              + f"; steps an epoch {per_epoch} at B={BATCH} (flat: "
+              f"{num_batches(len(tr.input_ids), BATCH)})")
+    val_batches = num_batches(len(te.input_ids), BATCH)
+
+    # ---- the main path: counts at 0 just before, read just after ----
+    ta.launches = ta.bwd_launches = ta.dbias_reduce_launches = 0
+    with kernel_shapes() as seen:
+        res = tiger_pipeline.train(cfg, tr, te, device="cuda").result
+        torch.cuda.synchronize()
+    fwd, bwd, reduce = ta.launches, ta.bwd_launches, ta.dbias_reduce_launches
+    # ---- end of the main path ----
+
+    steps = res.steps_run
+    assert steps == sum(per_epoch), (steps, per_epoch)
+    want_fwd = 6 * steps + 6 * MODE_EPOCHS * val_batches
+    print(f"[launches] {tag} path: t5_attention_fwd {fwd} (want 6 x {steps} steps + 6 x "
+          f"{MODE_EPOCHS * val_batches} val batches = {want_fwd}), t5_attention_bwd {bwd} "
+          f"(want {6 * steps}), t5_attention_dbias_reduce {reduce} (want {4 * steps})")
+    assert fwd == want_fwd and bwd == 6 * steps and reduce == 4 * steps, (fwd, bwd, reduce)
+    ran = sorted({lq for lq, _ in seen["bwd"]})  # the decoder's widths, and the encoder's 80
+    print(f"[{tag}] (Lq, Lk) of t5_attention_fwd: {sorted(seen['fwd'])}; of "
+          f"t5_attention_bwd: {sorted(seen['bwd'])}")
+    assert all((w, w) in seen["bwd"] and (w, 80) in seen["bwd"] for w in widths), seen
+    assert set(ran) == set(widths) | {80}, (ran, widths)
+    if field == "target_len_buckets":
+        assert {44, 120} <= set(ran), ran
+    # each (Lq, Lk) the path trained at is one that #1 and #2 are held at: the train shapes
+    # (enc, dec_self and cross_train) or BUCKET_CASES
+    compared = {(80, 80), (156, 156), (156, 80)} | {(c[1], c[2]) for c in BUCKET_CASES}
+    assert seen["bwd"] <= compared, (seen["bwd"], compared)
+
+    losses = res.train_losses
+    print(f"[{tag}] losses by epoch (train): {[round(x, 5) for x in losses]}; val: "
+          f"{[round(x, 5) for x in res.val_losses]}")
+    assert all(np.isfinite(losses + res.val_losses)) and losses[1] < losses[0], losses
+    ph = res.phase_seconds
+    ms_step = (ph["train"] - ph["first_epoch"]) / per_epoch[-1] * 1e3
+    card = card_line()
+    print(f"[{tag}] on {card}: {res.steady_examples_per_sec:.1f} train examples/s and "
+          f"{ms_step:.2f} ms/step over epoch 2 (host clock) against the flat [train] run's "
+          f"{train['examples_s']:.1f} examples/s and {train['ms_step']:.2f} ms/step in this "
+          f"process; first epoch {ph['first_epoch']:.2f} s")
+
+    # one step at each width, profiled (outside the counted main path)
+    trainer = tiger_pipeline.build_trainer(dataclasses.replace(cfg, target_len_buckets=1,
+                                                               target_len_composite=0),
+                                           tr, te, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    full = trainer.train_data
+    lens = (tr.labels != -100).sum(axis=1)
+    step_ms = {}
+    for w in widths:  # B rows whose targets fit w, their labels cut to w
+        idx = torch.from_numpy(np.flatnonzero(lens <= w)[-BATCH:]).cuda()
+        batch = trainer.gather(full, idx)
+        batch["labels"] = batch["labels"][:, :w].contiguous()
+        prof = profile_window(f"[{tag}] one train step (B={BATCH}, Lt={w}, dropout 0.1)",
+                              lambda: trainer.train_step(batch, gen), top_n=4)
+        step_ms[w] = None if prof is None else prof[0] / 1e3
+    print(f"[{tag}] on {card}: device ms of one step by decoder width: "
+          + ", ".join(f"{w}: {v}" for w, v in step_ms.items())
+          + f"; the flat step of [train] (Lt=156): {train['device_ms']}")
+    slice_rel = _slice_epoch_card_vs_cpu(tag, field, tmp, tr, te)
+    return dict(fwd=fwd, bwd=bwd, reduce=reduce, steps=steps, widths=widths, ran=ran,
+                examples_s=res.steady_examples_per_sec, ms_step=ms_step, step_ms=step_ms,
+                train_losses=losses, slice_rel=slice_rel)
+
+
+def phase_bucket_kernels():
+    """Kernels #1 and #2 against their plain versions at the bucket widths
+    the train shapes lack (``BUCKET_CASES``, batch 256, 4 heads of 16), with
+    the f32 dropout mask and without it: the existing tolerances, two calls
+    bit-identical, times, bounds and SDPA."""
+    fwd, bwd = {}, {}
+    for name, lq, lk, bias, causal_bias, pad, seed in BUCKET_CASES:
+        for tail in ("", "_no_dropout"):
+            kw = dict(bias=bias, pad=pad, causal_in_bias=causal_bias, seed=seed)
+            fwd[name + tail] = fwd_case_check(
+                name + tail, attention_case(name + tail, 4, BATCH, lq, lk, 16,
+                                            dropout=not tail, **kw)[1], repeat=not tail)
+            bwd[name + tail] = bwd_case_check(
+                name + tail, bwd_case(name + tail, 4, BATCH, lq, lk, 16, dropout=not tail,
+                                      **kw)[1], repeat=not tail)
+    card = card_line()
+    for name in BUCKET_SHAPES:
+        r, r0, b, b0 = fwd[name], fwd[name + "_no_dropout"], bwd[name], bwd[name + "_no_dropout"]
+        print(f"[len-buckets] {name} on {card}: #1 device ms {r['device_ms']:.5f} with the mask (bound "
+              f"{r['bound_ms']:.5f}), {r0['device_ms']:.5f} without against SDPA's "
+              f"{r0['library_device_ms']}; #2 {b['device_ms']:.5f} (bound {b['bound_ms']:.5f}), "
+              f"{b0['device_ms']:.5f} without against SDPA backward's {b0['library_device_ms']}")
+    return fwd, bwd
+
+
+def phase_data():
+    """The native batch packer: built from ``genrec_tpu_torch/native/
+    packer.cpp`` with g++ (it must be available here), and the TIGER, SASRec
+    and DenseT5 train arrays of the TIGER corpus bit-equal to the Python
+    path's, with each path's seconds."""
+    from genrec_tpu_torch.configs import DenseT5Config, SASRecConfig, TIGERConfig
+    from genrec_tpu_torch.data import datasets, native_packer, tiger_tokens
+    from genrec_tpu_torch.data.synthetic import make_codes, make_interactions
+
+    t0 = time.perf_counter()
+    assert native_packer.available(), "the native packer did not build"
+    ready_s = time.perf_counter() - t0
+    built = native_packer.build_seconds
+    print(f"[data] on {card_line()}: native packer "
+          f"{os.path.relpath(native_packer.library_path(), HERE)}: "
+          + ("built earlier" if built is None else f"g++ {built:.3f} s")
+          + f", ready in {ready_s:.3f} s")
+    corpus = make_interactions(num_users=TRAIN_USERS, num_items=N_ITEMS, min_len=4,
+                               max_len=41, seed=0)
+    split, _ = tiger_tokens.build_tiger_splits(corpus.item_id_lists, corpus.user_ids,
+                                               make_codes(N_ITEMS))
+    builds = {
+        "tiger": lambda n: datasets.build_tiger_arrays(split, TIGERConfig().max_len, 4,
+                                                       use_native=n),
+        "sasrec": lambda n: datasets.build_sasrec_arrays(corpus, SASRecConfig().max_len,
+                                                         "train", use_native=n),
+        "dense_t5": lambda n: datasets.build_dense_t5_arrays(corpus, DenseT5Config().max_seq_len,
+                                                             "train", use_native=n)}
+    seconds = {}
+    for name, build in builds.items():
+        out = {}
+        for native in (True, False):
+            t0 = time.perf_counter()
+            out[native] = build(native).arrays
+            seconds[(name, native)] = time.perf_counter() - t0
+        assert out[True].keys() == out[False].keys()
+        for k, v in out[True].items():
+            assert v.dtype == out[False][k].dtype and np.array_equal(v, out[False][k]), (name, k)
+        print(f"[data] {name} train arrays "
+              + ", ".join(f"{k} {tuple(v.shape)}" for k, v in out[True].items())
+              + f": native and Python bit-equal; native {seconds[(name, True)]:.4f} s, Python "
+              f"{seconds[(name, False)]:.4f} s")
+    return dict(build_s=native_packer.build_seconds, ready_s=ready_s, seconds=seconds)
 
 
 DIST_TOPK_B = 64       # [dist]: histories scored by predict_topk over the 10M-row table
@@ -4078,11 +4370,15 @@ def main() -> int:
     reduce = phase_dbias_reduce()
     bf16_fwd, bf16_bwd, bf16_regs = phase_bf16_kernels()
     flash, flash_build = phase_flash()
+    data = phase_data()
     tr, te, codes = train_corpus()
     phase_train_step_parity(tr)
     with tempfile.TemporaryDirectory() as tmp:
         launches, req_s, seqs_s = phase_serving(tmp)
         train = phase_train(tmp, tr, te, codes)
+        len_buckets = phase_width_mode("len-buckets", "target_len_buckets", tmp, tr, te, train)
+        bucket_fwd, bucket_bwd = phase_bucket_kernels()
+        composite = phase_width_mode("composite", "target_len_composite", tmp, tr, te, train)
         dist_run = phase_dist(tmp, tr, te, train)
         tp_run = phase_tp(tmp, tr, te, train)
         prof_dir = phase_profile_dir(tmp, tr, te)
@@ -4103,6 +4399,9 @@ def main() -> int:
     assert dist_run["tiger"]["fwd"] > 0 and dist_run["tiger"]["bwd"] > 0
     assert tp_run["fwd"] > 0 and tp_run["bwd"] > 0 and tp_run["reduce"] > 0
     assert prof_dir["fwd"] > 0 and prof_dir["bwd"] > 0 and prof_dir["reduce"] > 0
+    for mode in (len_buckets, composite):
+        assert mode["fwd"] > 0 and mode["bwd"] > 0 and mode["reduce"] > 0
+    modes = {"len_buckets": len_buckets, "composite": composite}
     assert prefix["fwd"] > 0 and prefix["bwd"] > 0 and prefix["reduce"] > 0
     assert dense["fwd"] > 0 and dense["bwd"] > 0 and dense["reduce"] > 0
     assert bf16["fwd"] > 0 and bf16["bwd"] > 0 and bf16["reduce"] > 0
@@ -4118,8 +4417,9 @@ def main() -> int:
         "replaces": "genrec_tpu/ops/t5_attention.py:115",
         "launches": (launches + train["fwd"] + prefix["fwd"] + dense["fwd"] + app_fwd
                      + cli_run["fwd"] + dist_run["tiger"]["fwd"] + tp_run["fwd"]
-                     + prof_dir["fwd"]),
+                     + prof_dir["fwd"] + len_buckets["fwd"] + composite["fwd"]),
         "launches_by_path": {"serve": launches, "train": train["fwd"],
+                             **{k: m["fwd"] for k, m in modes.items()},
                              "dist": dist_run["tiger"]["fwd"], "tp": tp_run["fwd"],
                              "profile_dir": prof_dir["fwd"],
                              "tiger_prefix": prefix["fwd"],
@@ -4160,6 +4460,13 @@ def main() -> int:
         "dense_shapes": "dense_train: q/k/v (4*256, 21, 16), bias (4, 21, 21), right-padded "
                         "mask (256, 21), f32 dropout mask at rate 0.3 (none in _no_dropout); "
                         "dense_serve: q/k/v (4*1, 21, 16), no dropout mask",
+        **{f"{k}_{m}": bucket_fwd[k][m] for k in BUCKET_SHAPES
+           for m in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_ms_f32", "max_abs_err")},
+        **{f"{k}_no_dropout_{m}": bucket_fwd[f"{k}_no_dropout"][m] for k in BUCKET_SHAPES
+           for m in ("ms", "device_ms", "bound_ms", "library_ms", "library_device_ms")},
+        "bucket_shapes": "dec_self_44/120: q/k/v (4*256, 44 or 120, 16), bias with the causal "
+                         "mask folded in; cross_44/120: q (4*256, 44 or 120, 16), k/v (4*256, "
+                         "80, 16), mask (256, 80); f32 dropout mask unless _no_dropout",
     }
     dec, dec0 = bwd["dec_self_train"], bwd["dec_self_train_no_dropout"]
     bwd_record = {
@@ -4167,8 +4474,9 @@ def main() -> int:
         "source": "genrec_tpu_torch/csrc/t5_attention_bwd.cu",
         "replaces": "genrec_tpu/ops/t5_attention.py:129",
         "launches": (train["bwd"] + prefix["bwd"] + dense["bwd"] + dist_run["tiger"]["bwd"]
-                     + tp_run["bwd"] + prof_dir["bwd"]),
+                     + tp_run["bwd"] + prof_dir["bwd"] + len_buckets["bwd"] + composite["bwd"]),
         "launches_by_path": {"serve": 0, "train": train["bwd"], "tiger_prefix": prefix["bwd"],
+                             **{k: m["bwd"] for k, m in modes.items()},
                              "dense_t5_train": dense["bwd"], "app": 0, "cli": 0,
                              "dist": dist_run["tiger"]["bwd"], "tp": tp_run["bwd"],
                              "profile_dir": prof_dir["bwd"]},
@@ -4198,6 +4506,7 @@ def main() -> int:
         **{f"{k}_no_dropout_{m}": bwd[f"{k}_no_dropout"][m] for k in PREFIX_SHAPES
            for m in ("ms", "device_ms", "bound_ms", "library_ms", "library_device_ms")},
         "dbias_reduce_launches_by_path": {"train": train["reduce"],
+                                          **{k: m["reduce"] for k, m in modes.items()},
                                           "tiger_prefix": prefix["reduce"],
                                           "dense_t5_train": dense["reduce"],
                                           "dist": dist_run["tiger"]["reduce"],
@@ -4208,14 +4517,20 @@ def main() -> int:
                      "max_rel_err", "smem_bytes", "blocks_per_sm")},
         **{f"dense_train_no_dropout_{m}": bwd["dense_train_no_dropout"][m]
            for m in ("ms", "device_ms", "bound_ms", "library_ms", "library_device_ms")},
+        **{f"{k}_{m}": bucket_bwd[k][m] for k in BUCKET_SHAPES
+           for m in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_ms_f32", "max_rel_err")},
+        **{f"{k}_no_dropout_{m}": bucket_bwd[f"{k}_no_dropout"][m] for k in BUCKET_SHAPES
+           for m in ("ms", "device_ms", "bound_ms", "library_ms", "library_device_ms")},
     }
     reduce_record = {
         "name": "t5_attention_dbias_reduce", "route": "cuda",
         "source": "genrec_tpu_torch/csrc/t5_attention_bwd.cu",
         "replaces": "genrec_tpu/ops/t5_attention.py:157 (the dbias sum of _bwd_kernel)",
         "launches": (train["reduce"] + prefix["reduce"] + dense["reduce"]
-                     + dist_run["tiger"]["reduce"] + tp_run["reduce"] + prof_dir["reduce"]),
+                     + dist_run["tiger"]["reduce"] + tp_run["reduce"] + prof_dir["reduce"]
+                     + len_buckets["reduce"] + composite["reduce"]),
         "launches_by_path": {"serve": 0, "train": train["reduce"],
+                             **{k: m["reduce"] for k, m in modes.items()},
                              "tiger_prefix": prefix["reduce"], "dense_t5_train": dense["reduce"],
                              "app": 0, "cli": 0, "dist": dist_run["tiger"]["reduce"],
                              "tp": tp_run["reduce"], "profile_dir": prof_dir["reduce"]},
@@ -4256,6 +4571,13 @@ def main() -> int:
           f"{train['device_ms']} ms, Recall@10 {bf16['recall10']:.4f}; remat peak MiB / device "
           "ms: " + ", ".join(f"{k} {v['peak_mib']:.1f} / {v['device_ms']:.3f}"
                              for k, v in remat.items())
+          + "; " + "; ".join(
+              f"{k}: {m['examples_s']:.1f} train examples/s against flat "
+              f"{train['examples_s']:.1f}, {m['steps']} steps in {MODE_EPOCHS} epochs, step "
+              f"device ms by width {m['step_ms']}" for k, m in modes.items())
+          + f"; native packer g++ {data['build_s']} s, "
+          + ", ".join(f"{k} {'native' if n else 'Python'} {v:.4f} s"
+                      for (k, n), v in data["seconds"].items())
           + f"; script {time.perf_counter() - t_start:.1f} s")
     kernels = [fwd_record, bwd_record, reduce_record,
                *bf16_records(bf16_fwd, bf16_bwd, bf16_regs, bf16)] + flash_records(

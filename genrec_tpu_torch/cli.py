@@ -252,8 +252,7 @@ def build_parser() -> argparse.ArgumentParser:
         if name == "tiger":
             sp.add_argument("--len-buckets", type=int, default=1,
                             help="partition training by target length into N static-shape "
-                                 "buckets; the port raises for N > 1 until the bucket "
-                                 "modes are ported (ROADMAP Queue 1 item 5)")
+                                 "buckets, each trained at its own decoder width")
         sp.set_defaults(fn=fn)
 
     sp = sub.add_parser("etl-app-db", help="SQLite app DB → H5 contracts")

@@ -38,11 +38,14 @@ class MeshConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
-    """Shared trainer knobs (``train/trainer.py``). The port's trainer does
-    not read ``bucket_interleave_chunks`` or ``composite_mix`` yet, nor
-    ``param_dtype`` and ``compute_dtype``, which the reference reads nowhere
-    either (the T5 models' compute dtype is ``T5ArchConfig.dtype``); they
-    are kept so TIGERConfig compares with the reference. ``profile_dir``
+    """Shared trainer knobs (``train/trainer.py``). The trainer does not
+    read ``param_dtype`` and ``compute_dtype``, which the reference reads
+    nowhere either (the T5 models' compute dtype is ``T5ArchConfig.dtype``);
+    they are kept so TIGERConfig compares with the reference.
+    ``bucket_interleave_chunks`` splits each length bucket's (or composite
+    width group's) epoch into that many interleaved chunks, and
+    ``composite_mix`` is the share of a composite group's rows drawn from
+    shorter groups. ``profile_dir``
     traces one epoch, the second of a fit (``utils/profiling.py``).
     ``shard_dataset`` (None: on with more than one rank) splits the
     datasets' rows over the mesh's 'data' axis."""

@@ -1,9 +1,11 @@
 """Fixed-shape SASRec, TIGER and DenseT5 arrays and batch iterators: copies
 of ``genrec_tpu/data/datasets.py``'s ``SASRecArrays``,
 ``build_sasrec_arrays``, ``build_tiger_arrays`` and
-``build_dense_t5_arrays`` (their Python paths, not the native packer),
-``TigerArrays``, ``DenseT5Arrays``, ``num_batches``, ``iterate_batches`` and
-``join_prof_embs``.
+``build_dense_t5_arrays`` (each on the port's native packer,
+``data/native_packer.py``, when it is available, else on its Python path,
+with bit-identical arrays), ``TigerArrays``, ``DenseT5Arrays``,
+``num_batches``, ``iterate_batches``, ``join_prof_embs`` and the TIGER
+length partitions ``bucket_by_target_len`` and ``target_len_widths``.
 
 SASRec train rows: input = seq[:-1], target = seq[1:], the last ``max_len``
 kept, left-padded with 0; test rows: leave-one-out (input = seq[:-1],
@@ -67,8 +69,18 @@ class SASRecArrays:
 
 
 def build_sasrec_arrays(data: InteractionData, max_len: int, mode: str,
-                        min_seq_len: int = 3) -> SASRecArrays:
-    """The train or test split of the sequences with at least ``min_seq_len`` items."""
+                        min_seq_len: int = 3,
+                        use_native: Optional[bool] = None) -> SASRecArrays:
+    """The train or test split of the sequences with at least ``min_seq_len``
+    items; ``use_native`` None packs natively when the packer is available."""
+    from genrec_tpu_torch.data import native_packer
+    if use_native is None:
+        use_native = native_packer.available()
+    if use_native:
+        kept = [np.asarray(s, np.int32) for s in data.item_id_lists
+                if len(s) >= min_seq_len]
+        inputs_n, targets_n = native_packer.pack_sasrec(kept, max_len, mode)
+        return SASRecArrays(inputs=inputs_n, targets=targets_n, item_num=data.max_item_id)
     inputs: List[np.ndarray] = []
     targets: List = []
     for seq in data.item_id_lists:
@@ -121,12 +133,15 @@ class TigerArrays:
 
 def build_tiger_arrays(split: TigerSplit, max_len: int, code_dim: int = 4,
                        pad_token: int = 0,
-                       max_target_items: Optional[int] = None) -> TigerArrays:
+                       max_target_items: Optional[int] = None,
+                       use_native: Optional[bool] = None) -> TigerArrays:
     """Pad/truncate histories to ``max_len`` items (left pad, keep the most
     recent), flatten to tokens; pad flat targets with -100 to a fixed width.
 
     ``max_target_items`` defaults to the longest target in the split (the
-    teacher-forcing train width); eval splits pass 1.
+    teacher-forcing train width); eval splits pass 1. ``use_native`` None
+    packs natively when the packer is available, and only at ``pad_token``
+    0, as the reference does.
     """
     seq_tokens = max_len * code_dim
     n = len(split.histories)
@@ -134,6 +149,17 @@ def build_tiger_arrays(split: TigerSplit, max_len: int, code_dim: int = 4,
         longest = max((len(t) for t in split.targets), default=code_dim) // code_dim
         max_target_items = max(1, longest)
     tgt_tokens = max_target_items * code_dim
+
+    from genrec_tpu_torch.data import native_packer
+    if use_native is None:
+        use_native = native_packer.available()
+    if use_native and pad_token == 0:
+        input_ids, attention_mask, labels = native_packer.pack_tiger(
+            [np.asarray(h, np.int32) for h in split.histories],
+            [np.asarray(t, np.int32) for t in split.targets],
+            max_len, code_dim, tgt_tokens)
+        return TigerArrays(input_ids, attention_mask, labels,
+                           np.asarray(split.user_ids, dtype=np.int32))
 
     input_ids = np.zeros((n, seq_tokens), dtype=np.int32)
     labels = np.full((n, tgt_tokens), -100, dtype=np.int32)
@@ -149,6 +175,63 @@ def build_tiger_arrays(split: TigerSplit, max_len: int, code_dim: int = 4,
     attention_mask = (input_ids != pad_token).astype(np.int32)
     return TigerArrays(input_ids, attention_mask, labels,
                        np.asarray(split.user_ids, dtype=np.int32))
+
+
+def bucket_by_target_len(arrays: Dict[str, np.ndarray], n_buckets: int,
+                         code_dim: int = 4,
+                         label_key: str = "labels") -> List[Dict[str, np.ndarray]]:
+    """Partition a TIGER-style data dict into length buckets on the
+    teacher-forcing target width.
+
+    The reference DataLoader pads each batch to its max target length
+    (`RQVAE-T5/data_vision.py` collate); static shapes pad to the corpus max
+    instead. Bucketing restores most of the per-batch-max economy with a
+    handful of shapes: boundaries sit at target-length quantiles (rounded up
+    to whole items), every bucket's labels are sliced to its own width, and
+    the Trainer runs each bucket's batches at that width
+    (``train_data_buckets``).
+
+    Returns 1..n_buckets dicts (empty buckets are dropped); with
+    n_buckets=1 this is the identity partition.
+    """
+    labels = arrays[label_key]
+    lens = (labels != -100).sum(axis=1)
+    widths = _quantile_widths(lens, n_buckets, code_dim)
+    buckets = []
+    lower = -1
+    for w in widths:
+        sel = (lens > lower) & (lens <= w)
+        lower = w
+        if not sel.any():
+            continue
+        d = {k: v[sel] for k, v in arrays.items()}
+        d[label_key] = d[label_key][:, :w]
+        buckets.append(d)
+    return buckets
+
+
+def _quantile_widths(lens: np.ndarray, n_buckets: int,
+                     code_dim: int) -> List[int]:
+    """Ascending static widths at target-length quantiles, rounded up to
+    whole items; the 1.0-quantile makes the top width cover lens.max().
+    Shared by bucket_by_target_len and target_len_widths so the two
+    modes partition on identical boundaries by construction."""
+    qs = np.quantile(lens, [(i + 1) / n_buckets for i in range(n_buckets)])
+    return sorted({int(np.ceil(q / code_dim) * code_dim) for q in qs})
+
+
+def target_len_widths(arrays: Dict[str, np.ndarray], n_buckets: int,
+                      code_dim: int = 4, label_key: str = "labels"):
+    """(row_widths, widths) for the Trainer's composite width mode: the
+    same quantile boundaries as :func:`bucket_by_target_len`, but the data
+    stays one flat full-width dict; each epoch assigns rows to static-width
+    batch groups, letting shorter rows ride in wider batches (see
+    ``TrainerConfig.composite_mix``)."""
+    labels = arrays[label_key]
+    lens = (labels != -100).sum(axis=1)
+    widths = _quantile_widths(lens, n_buckets, code_dim)
+    row_widths = np.ceil(lens / code_dim).astype(np.int64) * code_dim
+    return row_widths, widths
 
 
 def join_prof_embs(user_ids: np.ndarray, prof_user_ids: np.ndarray,
@@ -184,13 +267,25 @@ class DenseT5Arrays:
 
 
 def build_dense_t5_arrays(data: InteractionData, max_seq_len: int, mode: str,
-                          min_seq_len: int = 2) -> DenseT5Arrays:
+                          min_seq_len: int = 2,
+                          use_native: Optional[bool] = None) -> DenseT5Arrays:
     """Sliding-window (train) / leave-one-out (test) samples.
 
     Matches `T5/data_vision.py:87-117`: train targets range over positions
     1..n-2 (the last item is test-only), histories keep the most recent
     ``max_seq_len`` items, right-padded here (mask built at batch time).
+    ``use_native`` None packs natively when the packer is available, and
+    only in train mode, as the reference does.
     """
+    from genrec_tpu_torch.data import native_packer
+    if use_native is None:
+        use_native = native_packer.available()
+    if use_native and mode == "train":
+        hist, lens_n, tgt_n, uid_n = native_packer.pack_dense_t5_train(
+            [np.asarray(s, np.int32) for s in data.item_id_lists],
+            np.asarray(data.user_ids, np.int32), max_seq_len, min_seq_len)
+        return DenseT5Arrays(history_ids=hist, seq_lens=lens_n,
+                             target_ids=tgt_n, user_ids=uid_n)
     hist_rows: List[np.ndarray] = []
     lens: List[int] = []
     tgts: List[int] = []

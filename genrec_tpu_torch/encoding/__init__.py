@@ -1,1 +1,2 @@
-"""Text embeddings of the port: the deterministic hashing embedding only."""
+"""Text and student encoders of the port: the weight-free paths of the JAX
+package's ``encoding/`` (hashing embeddings in place of BERT's)."""

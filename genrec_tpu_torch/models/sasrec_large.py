@@ -20,9 +20,11 @@ upcast to f32 before every product, as JAX promotes them. ``ctx_axis``
 shards the sequence over a mesh axis and runs every block's attention as
 the ring of ``ops/ring_attention.py``.
 
-Not ported: the three-axis mesh (data × ctx × model) of the reference's
-``tests/test_long_context.py``: the port's mesh has two axes, so the table's
-'model' axis and the context axis cannot both be split.
+On a (data, ctx, model) mesh (``parallel.mesh.make_named_mesh``), as the
+reference's ``tests/test_long_context.py`` composes it, the three compose:
+the batch rows on 'data', the ring on 'ctx' and the table row-sharded on
+'model'; the losses' sums and the gradients go over the (data, ctx) group.
+One axis cannot carry both the ring and the table.
 """
 
 from __future__ import annotations
@@ -126,8 +128,8 @@ class SASRecLarge(nn.Module):
             f"padded vocab {V} must divide the model axis {model_dim}; round item_num up")
         if ctx_axis is not None and use_sharded and ctx_axis == "model" and model_dim > 1:
             raise NotImplementedError(
-                "the table's 'model' axis cannot also carry the sequence: the port's mesh has "
-                "two axes; pass use_sharded=False or another ctx_axis")
+                "the table's 'model' axis cannot also carry the sequence: put the ring on an "
+                "axis of its own (a data x ctx x model mesh) or pass use_sharded=False")
         table = torch.empty(V, dim)
         self.pos_emb = nn.Embedding(cfg.max_len, dim)
         with torch.no_grad():

@@ -1,19 +1,22 @@
-"""Process groups and the ('data', 'model') mesh of the port.
+"""Process groups and the named-axis meshes of the port.
 
 Counterpart of ``genrec_tpu/parallel/mesh.py`` on ``torch.distributed``: one
 process per GPU (NCCL), or per CPU rank (gloo) when the caller asks for the
 CPU. A rank is one device, so where JAX speaks of a process's devices the
 port speaks of the rank itself.
 
-Rank ``r`` sits at ``(r // model, r % model)``, the row-major layout of
-JAX's ``np.asarray(devices).reshape(data, model)``: the ranks of one data
-row share a data index and hold the same batch rows; the ranks of one
-column share a model index and hold the same table shard.
+A mesh has any number of named axes, as ``jax.sharding.Mesh(
+devices.reshape(shape), names)`` has, and rank ``r`` sits at its row-major
+coordinate in ``shape``: on the (data, model) mesh of :func:`make_mesh`
+that is ``(r // model, r % model)``. The ranks of one data row share a data
+index and hold the same batch rows; the ranks of one column share a model
+index and hold the same table shard. :func:`make_named_mesh` builds any
+other layout, such as the (data, ctx, model) mesh of long-context SASRec.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, FrozenSet, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -23,19 +26,38 @@ from genrec_tpu_torch.configs import MeshConfig
 from genrec_tpu_torch.device import resolve_device
 
 
-class Mesh:
-    """This rank's view of a (data, model) mesh: each axis's size, this
-    rank's index along it, and the process group of the ranks that differ
-    from this one along that axis only. Built by :func:`make_mesh`; a mesh
-    built without a process group is 1 × 1 and its groups are ``None``, so
-    every collective over it is the identity."""
+def _new_groups(grid: np.ndarray, axes: Sequence[int], rank: int):
+    """Every group of the ranks that differ along ``axes`` only (one per
+    coordinate of the other axes, in row-major order; ``dist.new_group`` is
+    collective, so every rank makes all of them), and the one holding
+    ``rank``."""
+    k = len(axes)
+    classes = np.moveaxis(grid, list(axes), list(range(grid.ndim - k, grid.ndim)))
+    mine = None
+    for ranks in classes.reshape(-1, int(np.prod([grid.shape[a] for a in axes]))):
+        g = dist.new_group(ranks.tolist())
+        mine = g if rank in ranks else mine
+    return mine
 
-    def __init__(self, names: Tuple[str, str], shape: Tuple[int, int],
-                 coordinate: Tuple[int, int], groups: Tuple[Optional[object], Optional[object]]):
+
+class Mesh:
+    """This rank's view of a mesh of named axes: each axis's size, this
+    rank's index along it, and the process group of the ranks that differ
+    from this one along that axis only. Built by :func:`make_mesh` or
+    :func:`make_named_mesh`; a mesh built without a process group has no
+    groups (``None``), so every collective over it is the identity.
+    ``grid`` (the ranks at their coordinates) lets :meth:`group_over` build
+    the groups of several axes when they are first asked for."""
+
+    def __init__(self, names: Sequence[str], shape: Sequence[int],
+                 coordinate: Sequence[int], groups: Sequence[Optional[object]],
+                 grid: Optional[np.ndarray] = None):
         self.names = tuple(names)
         self.shape: Dict[str, int] = dict(zip(names, shape))
         self._index = dict(zip(names, coordinate))
         self._groups = dict(zip(names, groups))
+        self._grid = grid
+        self._joint: Dict[FrozenSet[str], object] = {}
 
     def size(self, axis: Optional[str]) -> int:
         """The axis's size; 1 for an axis the mesh does not have (or None)."""
@@ -52,14 +74,25 @@ class Mesh:
 
     def group_over(self, axes: Sequence[Optional[str]]):
         """The group of the ranks that differ from this one along ``axes``
-        only: the world for both axes, one axis's group for one, None for
-        none (or without a process group)."""
-        axes = {a for a in axes if a in self.shape}
+        only: the world for all of the mesh's axes, one axis's group for one,
+        None for none (or without a process group). A group of some axes but
+        not all is made the first time it is asked for, which is collective:
+        every rank must ask for it, in the same order."""
+        axes = frozenset(a for a in axes if a in self.shape)
         if not axes or self._groups[self.names[0]] is None:
             return None
-        if len(axes) == 2:
+        if len(axes) == len(self.names):
             return dist.group.WORLD
-        return self._groups[axes.pop()]
+        if len(axes) == 1:
+            return self._groups[next(iter(axes))]
+        if axes not in self._joint:
+            if self._grid is None:
+                raise ValueError("this mesh was built without its grid of ranks: the group "
+                                 f"over {sorted(axes)} cannot be made")
+            self._joint[axes] = _new_groups(
+                self._grid, [i for i, n in enumerate(self.names) if n in axes],
+                dist.get_rank())
+        return self._joint[axes]
 
 
 def initialize_multihost(init_method: Optional[str] = None, world_size: Optional[int] = None,
@@ -93,6 +126,27 @@ def initialize_multihost(init_method: Optional[str] = None, world_size: Optional
     return dev
 
 
+def make_named_mesh(shape: Sequence[int], names: Sequence[str]) -> Mesh:
+    """The mesh of ``names`` over every rank of the process group, laid out
+    row-major in ``shape`` (whose sizes must multiply to the world size), as
+    ``jax.sharding.Mesh(np.asarray(devices).reshape(shape), names)`` lays
+    devices out. Without a process group the world is one rank and every
+    size must be 1. Every rank must call this, in the same order as its other
+    group creations: it makes one group per line of ranks along each axis
+    (``dist.new_group`` is collective)."""
+    live = dist.is_available() and dist.is_initialized()
+    n = dist.get_world_size() if live else 1
+    shape = tuple(int(x) for x in shape)
+    assert int(np.prod(shape)) == n, f"mesh {'x'.join(map(str, shape))} != {n} devices"
+    if not live:
+        return Mesh(names, shape, (0,) * len(shape), (None,) * len(shape))
+    rank = dist.get_rank()
+    grid = np.arange(n).reshape(shape)
+    coordinate = tuple(int(c) for c in np.unravel_index(rank, shape))
+    groups = [_new_groups(grid, [i], rank) for i in range(len(shape))]
+    return Mesh(names, shape, coordinate, groups, grid)
+
+
 def make_mesh(cfg: Optional[MeshConfig] = None) -> Mesh:
     """Build the (data, model) mesh over every rank of the process group.
 
@@ -100,26 +154,14 @@ def make_mesh(cfg: Optional[MeshConfig] = None) -> Mesh:
     multiply to the world size. Without a process group the world is one
     rank and the mesh 1 × 1 with no groups. Every rank must call this, in
     the same order as its other group creations: it makes one group per
-    row and per column (``dist.new_group`` is collective)."""
+    column (along 'data') and then one per row (along 'model')."""
     cfg = cfg or MeshConfig()
     live = dist.is_available() and dist.is_initialized()
     n = dist.get_world_size() if live else 1
     model = cfg.model_axis if cfg.model_axis > 0 else 1
     data = cfg.data_axis if cfg.data_axis > 0 else n // model
     assert data * model == n, f"mesh {data}x{model} != {n} devices"
-    if not live:
-        return Mesh(cfg.axis_names, (data, model), (0, 0), (None, None))
-    rank = dist.get_rank()
-    grid = np.arange(n).reshape(data, model)
-    d, m = divmod(rank, model)
-    data_group = model_group = None
-    for j in range(model):  # the columns: ranks of one model index, along 'data'
-        g = dist.new_group(grid[:, j].tolist())
-        data_group = g if j == m else data_group
-    for i in range(data):   # the rows: ranks of one data index, along 'model'
-        g = dist.new_group(grid[i].tolist())
-        model_group = g if i == d else model_group
-    return Mesh(cfg.axis_names, (data, model), (d, m), (data_group, model_group))
+    return make_named_mesh((data, model), cfg.axis_names)
 
 
 def process_rows(mesh: Mesh, n_rows: int) -> Tuple[int, int]:

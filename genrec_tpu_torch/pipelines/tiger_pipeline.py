@@ -14,9 +14,12 @@ block of the attention heads (kernels #1 and #2 on those heads) and of
 d_ff. The best parameters come back whole. Every rank evaluates the whole
 test split on the whole model; rank 0 writes the results CSV.
 
-Still to port (ROADMAP Queue 1 item 5): length buckets and composite
-widths (``target_len_buckets`` / ``target_len_composite`` > 1 raise
-``ValueError``), multi-device eval.
+``cfg.target_len_buckets`` > 1 trains on target-length buckets
+(``datasets.bucket_by_target_len``), each at its own decoder width, and
+else ``cfg.target_len_composite`` > 1 in composite width mode
+(``datasets.target_len_widths``), as the reference branches
+(`genrec_tpu/pipelines/tiger_pipeline.py:85-92`): kernels #1 and #2 run at
+each bucket's or group's width.
 """
 
 from __future__ import annotations
@@ -55,29 +58,31 @@ def loss_fn(model: TIGER, batch, generator: Optional[torch.Generator]):
     return loss, {"sum_loss": loss * n_valid, "valid": n_valid}
 
 
-def _refuse_bucket_modes(cfg: TIGERConfig) -> None:
-    """The reference partitions training by target length on either field
-    (`genrec_tpu/pipelines/tiger_pipeline.py:86-92`); training flat instead
-    would give other batches and losses for the same config."""
-    if cfg.target_len_buckets > 1 or cfg.target_len_composite > 1:
-        raise ValueError(
-            f"target_len_buckets={cfg.target_len_buckets} and target_len_composite="
-            f"{cfg.target_len_composite}: the length-bucket and composite-width modes are "
-            "not ported yet (ROADMAP.md Queue 1 item 5); use 1 and 0")
+def _train_kwargs(cfg: TIGERConfig, train_arrays: datasets.TigerArrays) -> Dict:
+    """The Trainer's training data for ``cfg``'s mode: the reference's branch
+    (`genrec_tpu/pipelines/tiger_pipeline.py:86-92`)."""
+    if cfg.target_len_buckets > 1:
+        return {"train_data_buckets": datasets.bucket_by_target_len(
+            train_arrays.arrays, cfg.target_len_buckets, cfg.code_dim)}
+    kw = {"train_data": train_arrays.arrays}
+    if cfg.target_len_composite > 1:
+        rw, ws = datasets.target_len_widths(train_arrays.arrays, cfg.target_len_composite,
+                                            cfg.code_dim)
+        kw.update(composite_widths=ws, row_widths=rw)
+    return kw
 
 
 def build_trainer(cfg: TIGERConfig, train_arrays: datasets.TigerArrays,
                   test_arrays: datasets.TigerArrays, device=None,
                   mesh: Optional[Mesh] = None) -> Trainer:
     """A TIGER at ``cfg`` with weights drawn from ``cfg.trainer.seed``, and
-    its Trainer over the two splits on ``device``, data-parallel over
-    ``mesh`` when given and tensor-parallel over its 'model' axis when that
-    is above 1."""
-    _refuse_bucket_modes(cfg)
+    its Trainer over the two splits on ``device`` (bucketed or composite as
+    ``cfg`` asks), data-parallel over ``mesh`` when given and
+    tensor-parallel over its 'model' axis when that is above 1."""
     model = TIGER(cfg, generator=torch.Generator().manual_seed(cfg.trainer.seed))
-    return Trainer(cfg.trainer, model=model, loss_fn=loss_fn, train_data=train_arrays.arrays,
+    return Trainer(cfg.trainer, model=model, loss_fn=loss_fn,
                    val_data=test_arrays.arrays, logger_name="tiger", device=device, mesh=mesh,
-                   param_specs=param_shardings(mesh, model))
+                   param_specs=param_shardings(mesh, model), **_train_kwargs(cfg, train_arrays))
 
 
 def train(cfg: TIGERConfig,
@@ -85,7 +90,6 @@ def train(cfg: TIGERConfig,
           test_arrays: Optional[datasets.TigerArrays] = None,
           device=None) -> TIGERArtifacts:
     device = resolve_device(device)
-    _refuse_bucket_modes(cfg)
     mesh = dp_shardings(cfg.mesh)
     if train_arrays is None:
         train_arrays = datasets.build_tiger_arrays(

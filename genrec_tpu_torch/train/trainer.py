@@ -56,15 +56,31 @@ the initialised parameters under their shardings:
   as the reference's store of global arrays does: a checkpoint resumes on
   the same mesh (cut again on load) and loads into a one-device model.
 
+Length-bucketed training (``train_data_buckets``, the reference's
+``:250-262`` and ``:618-668``): each bucket is a dataset of its own width,
+uploaded once (padded and row-sharded per bucket in sharded-dataset mode).
+Each epoch, bucket ``bi``'s index matrix is seeded ``cfg.seed + epoch + bi ·
+1000003`` and split into ``min(cfg.bucket_interleave_chunks, steps)`` chunks
+of consecutive steps (``np.array_split``); with more than one bucket the
+chunks run in the order of a shuffle seeded ``cfg.seed · 7919 + epoch``. One
+bucket is the flat path. The schedule counts Σ ceil(n_b / B) steps an epoch.
+
+Composite widths (``composite_widths``, ``row_widths``; the reference's
+``:330-367``, ``:472-516`` and ``:593-616``): one flat dataset; each epoch
+:meth:`Trainer._composite_plan` (seeded ``cfg.seed + epoch``) assigns every
+row to one group of a static width at least its own, its chunks interleaved
+as above, and each group's batches have their ``width_slice_keys`` sliced
+to the group's width before the loss (no slice at full width);
+``widths_run`` records the widths that ran. Not with buckets, nor with
+sharded datasets (``ValueError``, where the reference asserts).
+
 ``cfg.profile_dir`` traces one epoch, ``min(first epoch of this fit + 1,
 cfg.epochs)``, as the reference does: the first one is warm-up (kernel
 builds, allocator growth). The trace (``utils/profiling.trace``) spans the
 epoch's steps and the read of its loss sums; each epoch's steps lie in a
 "train epoch <n>" range.
 
-Still to port (ROADMAP Queue 1 item 5): length buckets and composite
-widths. The reference's batch-factory ``fit`` is left out until a caller
-needs it.
+The reference's batch-factory ``fit`` is left out until a caller needs it.
 """
 
 from __future__ import annotations
@@ -72,7 +88,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -130,15 +146,24 @@ class _LossModule(nn.Module):
 
 class Trainer:
     def __init__(self, cfg: TrainerConfig, *, model: nn.Module, loss_fn: LossFn,
-                 train_data: Dict[str, np.ndarray],
+                 train_data: Optional[Dict[str, np.ndarray]] = None,
                  val_data: Optional[Dict[str, np.ndarray]] = None,
                  logger_name: str = "genrec", device=None,
                  eval_loss_fn: Optional[LossFn] = None, mesh: Optional[Mesh] = None,
-                 param_specs: Optional[Dict[str, Spec]] = None):
+                 param_specs: Optional[Dict[str, Spec]] = None,
+                 train_data_buckets: Optional[List[Dict[str, np.ndarray]]] = None,
+                 composite_widths: Optional[Sequence[int]] = None,
+                 row_widths: Optional[np.ndarray] = None,
+                 width_slice_keys: Tuple[str, ...] = ("labels",)):
         """``train_data`` / ``val_data``: numpy arrays with one row per
         sample, uploaded to ``device`` once (the card unless ``device="cpu"``)
         and kept there as ``self.train_data`` / ``self.val_data`` (in
-        sharded-dataset mode, this rank's rows only). ``model`` is moved
+        sharded-dataset mode, this rank's rows only). ``train_data_buckets``
+        in place of ``train_data``: one such dataset per target-length
+        bucket, kept as ``self.train_buckets`` (``self.train_data`` is then
+        None). ``composite_widths`` with ``row_widths`` (one per row of
+        ``train_data``) trains in composite width mode, slicing
+        ``width_slice_keys`` to each group's width. ``model`` is moved
         there; the trainer updates it in place. ``loss_fn`` serves training
         (model in ``.train()``) and, unless ``eval_loss_fn`` is given,
         validation (``.eval()``). ``mesh`` (``dp_shardings``) makes the run
@@ -146,6 +171,8 @@ class Trainer:
         arrays. ``param_specs`` (``param_shardings``) makes it
         tensor-parallel over the mesh's 'model' axis: every rank passes the
         same whole ``model``, which is cut to this rank's shards here."""
+        if (train_data is None) == (train_data_buckets is None):
+            raise ValueError("pass train_data or train_data_buckets, one of the two")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device)
@@ -168,9 +195,30 @@ class Trainer:
         if cfg.batch_size % d or cfg.eval_batch_size % d:
             raise ValueError(f"batch sizes ({cfg.batch_size}/{cfg.eval_batch_size}) must "
                              f"divide the data axis ({d}): padded batches shard evenly")
-        n_train = len(next(iter(train_data.values())))
-        self.opt = make_optimizer(self.model.parameters(), cfg,
-                                  -(-n_train // cfg.batch_size),  # steps per epoch
+        self._composite = None  # composite mode: (ascending widths, each row's width)
+        self._slice_keys = tuple(width_slice_keys)
+        self.widths_run: Set[int] = set()  # composite mode: the group widths that ran
+        if composite_widths is not None:
+            # the reference asserts on both (trainer.py:340-343)
+            if train_data_buckets is not None:
+                raise ValueError("composite widths replace buckets: pass flat train_data")
+            if self._shard_data:
+                raise ValueError("composite widths and sharded datasets do not compose "
+                                 "(as in the reference)")
+            if row_widths is None:
+                raise ValueError("composite widths need row_widths")
+            for k in width_slice_keys:
+                if k not in train_data:
+                    raise ValueError(f"width_slice_keys: {k!r} is not in train_data")
+            self._composite = (sorted(composite_widths), np.asarray(row_widths))
+            self._full_width = np.asarray(train_data[width_slice_keys[-1]]).shape[1]
+        if train_data_buckets is not None:
+            # a bucketed epoch runs sum(ceil(n_b / B)) steps: each bucket pads its tail batch
+            steps_per_epoch = sum(-(-len(next(iter(d.values()))) // cfg.batch_size)
+                                  for d in train_data_buckets)
+        else:  # composite mode keeps the flat count, as the reference does
+            steps_per_epoch = -(-len(next(iter(train_data.values()))) // cfg.batch_size)
+        self.opt = make_optimizer(self.model.parameters(), cfg, steps_per_epoch,
                                   [p for k, p in self.model.named_parameters() if k in self._cut],
                                   mesh.group("model") if self._cut else None)
         self.step = 0
@@ -178,7 +226,10 @@ class Trainer:
         self.best_val = float("inf")
         self.logger = get_logger(logger_name, cfg.log_path)
         self.store = CheckpointStore(cfg.ckpt_dir, keep=cfg.keep_checkpoints)
-        self.train_data, self._train_meta = self._upload(train_data)
+        placed = [self._upload(d) for d in (train_data_buckets or [train_data])]
+        self.train_buckets = [p[0] for p in placed]
+        self._bucket_meta = [p[1] for p in placed]
+        self.train_data = self.train_buckets[0] if train_data is not None else None
         self.val_data, self._val_meta = (self._upload(val_data) if val_data is not None
                                          else (None, None))
         if cfg.resume:
@@ -305,20 +356,105 @@ class Trainer:
         batch["valid"] = idx >= 0
         return batch
 
+    @staticmethod
+    def _composite_plan(row_widths: np.ndarray, widths: List[int],
+                        batch_size: int, mix: float, seed: int):
+        """The reference's per-epoch width assignment for composite mode, to
+        the letter: [(width, index matrix)] covering every row exactly once.
+        Rows native to width group k (their length fits w_k but not w_{k-1})
+        anchor group k; a ``mix`` fraction of each group's slots is filled by
+        random rows drawn from the smaller groups' pools (largest width
+        first, so every filler row still fits). Leftover short rows train in
+        their own (smaller) groups."""
+        rng = np.random.default_rng(seed)
+        pools: List[List[int]] = []
+        lower = -1
+        for w in widths:
+            ids = np.where((row_widths > lower) & (row_widths <= w))[0]
+            ids = ids.astype(np.int32)
+            rng.shuffle(ids)
+            pools.append(list(ids))
+            lower = w
+        items = []
+        for k in range(len(widths) - 1, -1, -1):
+            nat = pools[k]
+            pools[k] = []
+            if mix > 0.0 and k > 0 and nat:
+                want = int(round(len(nat) * mix / max(1.0 - mix, 1e-9)))
+                donors = [i for i in range(k) if pools[i]]
+                fill: List[int] = []
+                while want > 0 and donors:
+                    for i in list(donors):  # round-robin across donors
+                        if want <= 0:
+                            break
+                        fill.append(pools[i].pop())
+                        want -= 1
+                        if not pools[i]:
+                            donors.remove(i)
+                nat = nat + fill
+            if not nat:
+                continue
+            ids = np.asarray(nat, np.int32)
+            rng.shuffle(ids)
+            steps = -(-len(ids) // batch_size)
+            mat = np.full((steps * batch_size,), -1, np.int32)
+            mat[:len(ids)] = ids
+            items.append((widths[k], mat.reshape(steps, batch_size)))
+        return items
+
+    def _mine(self, mat: np.ndarray, meta) -> torch.Tensor:
+        """This rank's columns of a global index matrix on the device, as
+        indices into its own rows (-1 pads)."""
+        bloc, d = mat.shape[1] // self._data_axis, self._data_index
+        mine = mat[:, d * bloc:(d + 1) * bloc]
+        if meta is not None:
+            mine = np.where(mine >= 0, mine - d * meta[1], -1)
+        return torch.from_numpy(np.ascontiguousarray(mine)).to(self.device, torch.int64)
+
     def _indices(self, data: Batch, meta, batch_size: int, *, shuffle: bool, seed: int):
         """The global index matrix on the host, and this rank's columns of it
-        on the device, as indices into its own rows (-1 pads)."""
+        on the device (:meth:`_mine`)."""
         if meta is None:
             mat = self._index_matrix(len(next(iter(data.values()))), batch_size,
                                      shuffle=shuffle, seed=seed)
         else:
             mat = self._index_matrix_sharded(*meta, self._data_axis, batch_size,
                                              shuffle=shuffle, seed=seed)
-        bloc, d = batch_size // self._data_axis, self._data_index
-        mine = mat[:, d * bloc:(d + 1) * bloc]
-        if meta is not None:
-            mine = np.where(mine >= 0, mine - d * meta[1], -1)
-        return mat, torch.from_numpy(np.ascontiguousarray(mine)).to(self.device, torch.int64)
+        return mat, self._mine(mat, meta)
+
+    def _epoch_work(self, epoch: int):
+        """The epoch's chunks in the order they run, as the reference orders
+        them: [(dataset, width to slice to or None, global index chunk, this
+        rank's device chunk)]."""
+        cfg = self.cfg
+        work = []
+        if self._composite is not None:
+            widths, row_w = self._composite
+            for w, mat in self._composite_plan(row_w, widths, cfg.batch_size,
+                                               cfg.composite_mix, cfg.seed + epoch):
+                k = max(1, min(cfg.bucket_interleave_chunks, mat.shape[0]))
+                work.extend((self.train_data, None if w == self._full_width else w, chunk,
+                             self._mine(chunk, None))
+                            for chunk in np.array_split(mat, k) if len(chunk))
+            np.random.default_rng(cfg.seed * 7919 + epoch).shuffle(work)
+            return work
+        n_buckets = len(self.train_buckets)
+        for bi, (data, meta) in enumerate(zip(self.train_buckets, self._bucket_meta)):
+            # bucket 0's seed is the flat path's
+            mat, idx = self._indices(data, meta, cfg.batch_size, shuffle=True,
+                                     seed=cfg.seed + epoch + bi * 1000003)
+            k = 1 if n_buckets == 1 else max(1, min(cfg.bucket_interleave_chunks, mat.shape[0]))
+            rows = np.array_split(np.arange(mat.shape[0]), k)
+            work.extend((data, None, mat[r], idx[r[0]:r[-1] + 1]) for r in rows if len(r))
+        if n_buckets > 1:
+            np.random.default_rng(cfg.seed * 7919 + epoch).shuffle(work)
+        return work
+
+    def _sliced(self, batch: Batch, width: Optional[int]) -> Batch:
+        """The batch with its ``width_slice_keys`` cut to ``width`` (composite)."""
+        if width is None:
+            return batch
+        return {k: v[:, :width] if k in self._slice_keys else v for k, v in batch.items()}
 
     def train_step(self, batch: Batch, generator: Optional[torch.Generator]):
         """One update on ``batch`` (this rank's rows of it); returns its
@@ -386,19 +522,22 @@ class Trainer:
             t0 = time.perf_counter()
             with (trace(cfg.profile_dir) if profiling else contextlib.nullcontext()), \
                     annotate(f"train epoch {epoch}"):
-                mat, idx_mat = self._indices(self.train_data, self._train_meta,
-                                             cfg.batch_size, shuffle=True, seed=cfg.seed + epoch)
+                work = self._epoch_work(epoch)
                 sum_loss = torch.zeros((), device=self.device)
                 sum_valid = torch.zeros((), device=self.device)
-                for idx in idx_mat:
-                    sl, vl = self.train_step(self.gather(self.train_data, idx), generator)
-                    sum_loss += sl
-                    sum_valid += vl
+                for data, width, _, idx_chunk in work:
+                    if self._composite is not None:
+                        self.widths_run.add(width or self._full_width)
+                    for idx in idx_chunk:
+                        sl, vl = self.train_step(self._sliced(self.gather(data, idx), width),
+                                                 generator)
+                        sum_loss += sl
+                        sum_valid += vl
                 # the reads synchronize: once per epoch
                 sum_loss, sum_valid = all_reduce_sum(torch.stack([sum_loss, sum_valid]),
                                                      self._group).tolist()
-            steps_run += len(idx_mat)
-            n_examples = int((mat >= 0).sum())
+            steps_run += sum(len(chunk) for _, _, chunk, _ in work)
+            n_examples = sum(int((chunk >= 0).sum()) for _, _, chunk, _ in work)
             dt = time.perf_counter() - t0
             phase["train"] += dt
             total_time += dt

@@ -1,6 +1,8 @@
 """The port stands alone: no file of ``genrec_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX, its libraries or the JAX package; the package
-imports on a machine with no ``nvcc`` and no ``triton``; its entry points run
+imports on a machine with no ``nvcc``, no ``triton`` and no ``g++`` on the
+path, without importing pydantic (``backend/schemas.py`` defines its models
+when first asked for); its entry points run
 on the card unless the caller asks for the CPU, and raise without a card.
 """
 
@@ -66,7 +68,7 @@ def test_package_imports_without_nvcc_triton_or_jax():
         "    importlib.import_module(m.name)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(BANNED)!r})\n"
         "assert not bad, bad\n"
-        "assert 'triton' not in sys.modules\n"
+        "assert 'triton' not in sys.modules and 'pydantic' not in sys.modules\n"
         "print('imported', len([m for m in sys.modules if m.startswith('genrec_tpu_torch')]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], env=_clean_env(), cwd=str(ROOT),

@@ -108,26 +108,3 @@ def test_tiger_resume_and_main(tmp_path, tiger_data):
     assert len(art2.result.train_losses) == 1
     assert art2.result.epochs_run == 3
     assert np.isfinite(art2.result.train_losses[0])
-
-
-def test_bucket_modes_raise_where_they_would_train_flat(tmp_path, tiger_data):
-    """The reference trains by target-length buckets or composite widths when
-    either field asks for it (`genrec_tpu/pipelines/tiger_pipeline.py:86-92`);
-    the port has neither mode yet, so it refuses both before it reads or
-    trains anything, and so does the CLI's ``tiger --len-buckets 4``."""
-    from genrec_tpu_torch import cli
-
-    _, train_split, test_split = tiger_data
-    base = _cfg(tmp_path, 0.0, "none")
-    tr, te = _arrays(base, train_split), _arrays(base, test_split, test=True)
-    for field, value in (("target_len_buckets", 4), ("target_len_composite", 2)):
-        cfg = dataclasses.replace(base, **{field: value})
-        with pytest.raises(ValueError, match="Queue 1 item 5"):
-            tiger_pipeline.train(cfg, tr, te, device="cpu")
-        with pytest.raises(ValueError, match="Queue 1 item 5"):
-            tiger_pipeline.build_trainer(cfg, tr, te, device="cpu")
-    ckpt = tmp_path / "cli_ckpt"
-    with pytest.raises(ValueError, match="Queue 1 item 5"):
-        cli.main(["tiger", "--len-buckets", "4", "--device", "cpu", "--epochs", "1",
-                  "--data-dir", str(tmp_path / "absent"), "--ckpt-dir", str(ckpt)])
-    assert not ckpt.exists()
