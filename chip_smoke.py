@@ -107,7 +107,9 @@ which asserts; any failure exits non-zero and prints no result:
     2^-8·max|plain|, dbias within 1e-4·max + 1e-5, every output at most
     1.25x as far from the f64 result as the plain bf16 version, two calls
     bit-identical; times beside bf16 SDPA, bounds at bf16 I/O, shared
-    memory, blocks per SM, ptxas registers;
+    memory, blocks per SM, registers and local memory (none at D=16); the
+    same checks, untimed, at D=64 and 128 (L=80), their launches counted
+    apart;
 15. ``[bf16]`` path (after 9): the T5 stack at ``arch.dtype="bfloat16"`` —
     a B=16 TIGER step against the CPU's bf16 step, 3 epochs of TIGER
     training and ``evaluate`` (Recall@10 at least half of 6's f32 figure),
@@ -3695,6 +3697,14 @@ BF16_CASES = (
                                                       seed=41)),
     ("serve", 4, 1, 80, 80, dict(seed=1)),
 )
+# the wider instantiations of the bf16 entries (no model of the repo runs them): D = 64 and
+# 128 at L = 80 over 4 heads of 64 rows, with the f32 dropout mask and without; checked as
+# BF16_CASES are, not timed, their launches counted apart
+BF16_WIDE_CASES = (
+    ("d64_l80", 4, 64, 80, 80, dict(d=64, seed=61)),
+    ("d128_l80", 4, 64, 80, 80, dict(d=128, seed=62)),
+)
+BF16_DS = (16, 64, 128)  # widths whose bf16 kernels' registers and local memory are printed
 
 
 def bf16_ulp(x: float) -> float:
@@ -3722,27 +3732,43 @@ def phase_bf16_kernels():
     bit-identical. Times (CUDA events and the profiler's device time) of the
     kernel, the plain version and one bf16 SDPA call (forward, and forward
     with backward through the bias, where no dropout mask is given), the
-    bounds at bf16 I/O, shared memory, blocks per SM and ptxas registers.
-    Every failure is collected and raised at the end, with all the lines
+    bounds at bf16 I/O, shared memory and blocks per SM. ``BF16_WIDE_CASES``
+    (D = 64 and 128) are checked the same way, untimed, their launches
+    counted apart. The kernels' registers and local memory per thread
+    (cudaFuncGetAttributes) at ``BF16_DS``: none local at D = 16. Every
+    failure is collected and raised at the end, with all the lines
     printed."""
     from genrec_tpu_torch.ops import _build
     from genrec_tpu_torch.ops import t5_attention as ta
 
     bf = torch.bfloat16
-    regs = {}
     for src in ("t5_attention_fwd", "t5_attention_bwd"):
         log = _build.build_log.get(src)
         for fn, (n, stores, loads) in (ptxas_report(log[1], f"{src}_bf16_kernel")
                                        if log else {}).items():
             print(f"[bf16] ptxas {fn}: {n} registers, {stores} bytes spill stores, {loads} "
                   f"bytes spill loads")
-            if "ILi2E" in fn:  # the D = 16 build
-                regs[src] = (n, stores + loads)
     fails, fwd, bwd = [], {}, {}
-    for name, h, b, lq, lk, kw in BF16_CASES:
+    attrs = {d: ta.bf16_kernel_attributes(d) for d in BF16_DS}
+    for d, at in attrs.items():
+        print(f"[bf16] D={d}: " + "; ".join(
+            f"t5_attention_{k}_bf16 {r['registers']} registers, {r['local_bytes']} bytes of "
+            f"local memory per thread" for k, r in at.items()))
+    for k, r in attrs[16].items():
+        if r["local_bytes"]:
+            fails.append(f"t5_attention_{k}_bf16 at D=16 uses {r['local_bytes']} bytes of "
+                         f"local memory (spills)")
+    regs = {f"t5_attention_{k}": (r["registers"], r["local_bytes"])
+            for k, r in attrs[16].items()}
+    wide = [0, 0]  # launches of the BF16_WIDE_CASES, forward and backward
+    for name, h, b, lq, lk, kw in BF16_CASES + BF16_WIDE_CASES:
+        kw = dict(kw)
+        d = kw.pop("d", 16)
+        timed = d == 16
+        counts = (ta.bf16_launches, ta.bf16_bwd_launches)
         for drop in (False,) if name == "serve" else (True, False):
             key = name if drop or name == "serve" else f"{name}_no_dropout"
-            _, a = bwd_case(key, h, b, lq, lk, 16, dropout=drop, **kw)
+            _, a = bwd_case(key, h, b, lq, lk, d, dropout=drop, **kw)
             for t in ("qf", "kf", "vf", "do"):
                 a[t] = a[t].to(bf)
             rate = kw.get("rate", 0.1) if drop else 0.0
@@ -3772,22 +3798,22 @@ def phase_bf16_kernels():
                 sdpa = torch.nn.functional.scaled_dot_product_attention
                 fns.append(lambda: sdpa(q4, k4, v4, attn_mask=add, scale=1.0))
             iters = 200 if name == "serve" else 20
-            ms = [cuda_ms(f, iters) for f in fns] + [None] * (3 - len(fns))
-            dev = [device_ms(f) for f in fns] + [None] * (3 - len(fns))
+            ms = [cuda_ms(f, iters) for f in fns] if timed else []
+            dev = [device_ms(f) for f in fns] if timed else []
+            ms, dev = (x + [None] * (3 - len(x)) for x in (ms, dev))
             bounds = attention_bound_ms(a)
             r = fwd[key] = dict(max_abs_err=err, ulp=bf16_ulp(scale), f64_err=e64,
                                 plain_f64_err=p64, ms=ms[0], plain_ms=ms[1], library_ms=ms[2],
                                 device_ms=dev[0], plain_device_ms=dev[1],
                                 library_device_ms=dev[2], bound_ms=bounds["bf16"][0],
-                                bound_by=bounds["bf16"][1], bound_tf32x3_ms=bounds["tf32x3"][0])
+                                bound_by=bounds["bf16"][1])
             print(f"[bf16] t5_attention_fwd_bf16 {key} q={tuple(a['qf'].shape)} lk={lk} "
                   f"dropout={drop}: max_abs_err={err:.3e} (one bf16 ulp at max|plain| "
                   f"{scale:.3f}: {r['ulp']:.3e}); from f64: kernel {e64:.3e}, plain bf16 "
-                  f"{p64:.3e} | per call (CUDA events): ms={ms[0]:.5f} plain_ms={ms[1]:.5f} "
-                  f"sdpa_bf16_ms={ms[2]} | device only: ms={dev[0]:.5f} plain_ms={dev[1]:.5f} "
+                  f"{p64:.3e} | per call (CUDA events): ms={ms[0]} plain_ms={ms[1]} "
+                  f"sdpa_bf16_ms={ms[2]} | device only: ms={dev[0]} plain_ms={dev[1]} "
                   f"sdpa_bf16_ms={dev[2]} | bound_ms={r['bound_ms']:.6f} ({r['bound_by']}, "
-                  f"bf16 I/O, products at the bf16 rate), {r['bound_tf32x3_ms']:.6f} with "
-                  f"the products at the 3xTF32 rate the kernel runs them at")
+                  f"bf16 I/O, products at the bf16 rate)")
             if name == "serve":
                 continue
 
@@ -3822,35 +3848,37 @@ def phase_bf16_kernels():
             if not all(g is None or torch.equal(g, y) for g, y in zip(got, again)):
                 fails.append(f"{key}: #2 two calls differ")
             fns = [kernel, plain]
-            if not drop:
+            if not drop and timed:
                 lib, why = sdpa_backward(a)
                 if lib is not None:
                     fns.append(lib)
                 else:
                     print(f"[bf16] {key}: SDPA backward refused: {why}")
-            ms = [cuda_ms(f, 20) for f in fns] + [None] * (3 - len(fns))
-            dev = [device_ms(f, 10) for f in fns] + [None] * (3 - len(fns))
+            ms = [cuda_ms(f, 20) for f in fns] if timed else []
+            dev = [device_ms(f, 10) for f in fns] if timed else []
+            ms, dev = (x + [None] * (3 - len(x)) for x in (ms, dev))
             bounds = bwd_bound_ms(a)
             r = bwd[key] = dict(max_abs_err=max(e[0] for e in errs.values()),
                                 max_rel_err=max(rels), errs=errs, ms=ms[0], plain_ms=ms[1],
                                 library_ms=ms[2], device_ms=dev[0], plain_device_ms=dev[1],
                                 library_device_ms=dev[2], bound_ms=bounds["bf16"][0],
-                                bound_by=bounds["bf16"][1],
-                                bound_tf32x3_ms=bounds["tf32x3"][0])
+                                bound_by=bounds["bf16"][1])
             print(f"[bf16] t5_attention_bwd_bf16 {key} dropout={drop}: "
                   + "; ".join(f"{g} err {e:.3e} (tol {t:.3e}) from f64 kernel {k64:.3e} "
                               f"plain {p64:.3e}" for g, (e, t, k64, p64) in errs.items())
-                  + f" | per call (CUDA events): ms={ms[0]:.5f} plain_ms={ms[1]:.5f} "
-                  f"sdpa_bf16_ms={ms[2]} | device only: ms={dev[0]:.5f} plain_ms={dev[1]:.5f} "
-                  f"sdpa_bf16_ms={dev[2]} | bound_ms={r['bound_ms']:.6f} ({r['bound_by']}), "
-                  f"{r['bound_tf32x3_ms']:.6f} at the 3xTF32 rate")
+                  + f" | per call (CUDA events): ms={ms[0]} plain_ms={ms[1]} "
+                  f"sdpa_bf16_ms={ms[2]} | device only: ms={dev[0]} plain_ms={dev[1]} "
+                  f"sdpa_bf16_ms={dev[2]} | bound_ms={r['bound_ms']:.6f} ({r['bound_by']})")
             if drop and name != "serve":
-                smem, per_sm = ta.fwd_occupancy(lq, lk, 16, bf)
-                bsmem, bper_sm = ta.bwd_occupancy(lq, lk, 16, bf)
+                smem, per_sm = ta.fwd_occupancy(lq, lk, d, bf)
+                bsmem, bper_sm = ta.bwd_occupancy(lq, lk, d, bf)
                 fwd[key].update(smem_bytes=smem, blocks_per_sm=per_sm)
                 bwd[key].update(smem_bytes=bsmem, blocks_per_sm=bper_sm)
                 print(f"[bf16] {key}: #1 {smem} bytes of shared memory a block, {per_sm} blocks "
                       f"an SM; #2 {bsmem} bytes, {bper_sm} blocks an SM")
+        if not timed:
+            wide[0] += ta.bf16_launches - counts[0]
+            wide[1] += ta.bf16_bwd_launches - counts[1]
     dec = fwd["dec_self_train"]
     mb = lambda n: n / 1e6  # noqa: E731
     hb, lq, d = 4 * BATCH, 156, 16
@@ -3859,10 +3887,15 @@ def phase_bf16_kernels():
           f"f32; the f32 dropout mask {mb(hb * lq * lq * 4):.1f} MB either way; #1's bound "
           f"{dec['bound_ms']:.4f} ms with the mask, "
           f"{fwd['dec_self_train_no_dropout']['bound_ms']:.4f} ms without")
+    print(f"[bf16] {', '.join(c[0] for c in BF16_WIDE_CASES)}: {wide[0]} launches of "
+          f"t5_attention_fwd_bf16 and {wide[1]} of t5_attention_bwd_bf16, counted apart from "
+          f"the [bf16] path's")
+    if not all(wide):
+        fails.append(f"the D > 16 cases launched the bf16 entries {wide} times")
     assert not fails, "[bf16] kernels:\n" + "\n".join(fails)
     print(f"[bf16] kernels #1 and #2 in bf16 hold at {len(fwd)} forward and {len(bwd)} backward "
           f"cases")
-    return fwd, bwd, regs
+    return fwd, bwd, dict(regs, wide_launches=wide, attributes=attrs)
 
 
 def _rel_frobenius(got, want, floor: float) -> float:
@@ -4293,10 +4326,9 @@ def bf16_records(fwd, bwd, regs, path):
     """The JSON records of kernels #1 and #2's bf16 entry points, timed at
     the TIGER encoder train shape without the dropout mask (#1, as the f32
     record's ``bench``) and the decoder self-attention with it (#2, as the
-    f32 record); launches from the ``[bf16]`` path. ``bound_ms`` counts the
-    products at the bf16 tensor-core rate (``bound_tf32x3_ms`` at the 3xTF32
-    rate the kernels run them at) and q, k, v, out, do, dq, dk and dv at 2
-    bytes."""
+    f32 record); launches from the ``[bf16]`` path (those of the D = 64 and
+    128 cases apart, ``launches_wide``). ``bound_ms`` counts the products at
+    the bf16 tensor-core rate and q, k, v, out, do, dq, dk and dv at 2 bytes."""
     enc, dec, dec0 = fwd["enc_train_no_dropout"], bwd["dec_self_train"], bwd[
         "dec_self_train_no_dropout"]
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms", "library_device_ms",
@@ -4308,13 +4340,14 @@ def bf16_records(fwd, bwd, regs, path):
         "launches": path["fwd"], "launches_by_path": path["fwd_by_path"],
         "max_abs_err": max(r["max_abs_err"] for r in fwd.values()),
         "ms": enc["ms"], "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
-        "bound_by": enc["bound_by"], "bound_tf32x3_ms": enc["bound_tf32x3_ms"],
+        "bound_by": enc["bound_by"],
         "library_ms": enc["library_ms"], "device_ms": enc["device_ms"],
         "library_device_ms": enc["library_device_ms"],
         "shape": "q/k/v (4*256, 80, 16) bf16, bias (4, 80, 80) f32, mask (256, 80)",
         "library_note": "SDPA forward in bf16 with the dense additive mask, scale 1, without "
                         "a dropout mask (no library call takes a given one)",
-        "registers_d16": regs.get("t5_attention_fwd", (None,))[0],
+        "registers_d16": regs["t5_attention_fwd"][0],
+        "local_bytes_d16": regs["t5_attention_fwd"][1], "launches_wide": regs["wide_launches"][0],
         **{f"{k}_{m}": r.get(m) for k, r in fwd.items() for m in keys + (
             "f64_err", "plain_f64_err", "smem_bytes", "blocks_per_sm")},
     }
@@ -4326,7 +4359,7 @@ def bf16_records(fwd, bwd, regs, path):
         "max_abs_err": max(r["max_abs_err"] for r in bwd.values()),
         "max_rel_err": max(r["max_rel_err"] for r in bwd.values()),
         "ms": dec["ms"], "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
-        "bound_by": dec["bound_by"], "bound_tf32x3_ms": dec["bound_tf32x3_ms"],
+        "bound_by": dec["bound_by"],
         "library_ms": dec0["library_ms"], "ms_no_dropout": dec0["ms"],
         "device_ms": dec["device_ms"], "library_device_ms": dec0["library_device_ms"],
         "shape": "decoder self-attention: q/k/v/do (4*256, 156, 16) bf16, bias (4, 156, 156) "
@@ -4334,7 +4367,8 @@ def bf16_records(fwd, bwd, regs, path):
                  "includes the f32 dbias reduction",
         "library_note": "SDPA backward in bf16 at the same shape without the dropout mask, "
                         "beside ms_no_dropout",
-        "registers_d16": regs.get("t5_attention_bwd", (None,))[0],
+        "registers_d16": regs["t5_attention_bwd"][0],
+        "local_bytes_d16": regs["t5_attention_bwd"][1], "launches_wide": regs["wide_launches"][1],
         **{f"{k}_{m}": r.get(m) for k, r in bwd.items() for m in keys + (
             "max_rel_err", "smem_bytes", "blocks_per_sm")},
     }

@@ -65,13 +65,46 @@
 //     are bit-identical between two calls on the same inputs, as the TPU kernel's
 //     are (it summed dbias over an ordered grid axis).
 //
-// The bf16 entry point copies the reference's kernel at a bf16 compute dtype,
-// which casts q, k, v and dO to f32 and computes everything in f32: this is the
-// same code instantiated for bf16 I/O, with q, k, v and dO converted to f32 as
-// they are staged (plain 16-byte loads instead of cp.async, since the copy
-// converts) and dq, dk and dv rounded to bf16 once, at their stores. The bias,
-// the dropout mask and the dbias scratch stay f32, and the reduction kernel is
-// the f32 one. Shared memory and the limits are the f32 kernel's.
+// The bf16 entry point (t5_attention_bwd_bf16) replaces the same Pallas kernel
+// at a bf16 compute dtype: `_bwd_kernel` casts bf16 q, k, v and dO to f32 and
+// computes everything in f32; dq, dk and dv are rounded to bf16 once, at
+// their stores. The bias, the dropout mask and the dbias scratch stay f32,
+// and the reduction kernel is the f32 one. Bound on this card: with the f32
+// dropout mask by bytes (0.041 ms at the decoder shape), without it by bytes
+// at 0.011 ms; it runs far above both, bound by the instructions it issues
+// per score. It has its own kernel (the helpers in t5_attention_bf16.cuh):
+//
+//   - Q, dO, K and V staged as bf16 by 16-byte cp.async at a row stride of
+//     D + 8 values padded to 16, 32, 64 or 128, rows padded to 16: 33,920
+//     bytes at 156 x 156 x 16, against the f32 kernel's 54,400. Every operand
+//     comes by ldmatrix.x4: A operands of the strips as they lie, the B
+//     operands of X.Y^T as they lie, and those of C.Y transposed (K in dq,
+//     Q and dO in dk and dv).
+//   - the products with two bf16 operands, s (and s^T) and dO.V^T (and
+//     V.dO^T), are one mma.sync.m16n8k16 bf16 pass each: exact products,
+//     f32 sums. phase B's K.Q^T sums the same products in the same order as
+//     phase A's Q.K^T, so both phases see the same p.
+//   - the products with an f32 side, ds.K, ds^T.Q and (p*dm)^T.dO, split it
+//     into three bf16 parts (hi, mid, lo; each remainder exact in f32), which
+//     hold it to f32's own 24 bits, and take three passes, the small parts
+//     first, into a fresh accumulator added in f32. Two parts (17 bits) were
+//     measured: dq then lay a rounding of bf16 (one ulp at the top binade)
+//     from the f32 plain version where the f32 design did not (PERF.md);
+//     two TF32 passes with the bf16 side widened would take four m16n8k8
+//     steps and the conversions for what three k16 passes do.
+//   - 16 keys (phase A) or 16 queries (phase B) a step: the two accumulator
+//     tiles of a step are the next product's A operand, so ds and p*dm pass
+//     on with one split per register pair and no shuffle; the online pass 1
+//     rescales once per 16 keys.
+//   - the rest as the f32 kernel: phases A and B, statistics as one float4,
+//     padding query rows at m = FLT_MAX and 1/l = 0 (p exactly 0 whatever the
+//     bias, so a bias of +100 makes no NaN), accurate expf, the dbias scratch
+//     and its in-order reduction: one owner per output, no atomics, bit-equal
+//     calls.
+//   At D = 16 the three inner loops issue 325 + 519 + 469 warp instructions
+//   per 16 x 16 tile of scores (5.1 per score), where the f32 kernel
+//   instantiated for bf16 I/O issued 335 + 356 + 351 per 16 x 8 (8.1);
+//   counted in the SASS by genrec_tpu_torch/tools/sass_loops.py.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,6 +113,8 @@
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+
+#include "t5_attention_bf16.cuh"
 
 namespace {
 
@@ -124,11 +159,6 @@ struct Params {
 
 // ---- f32 and bf16 I/O ----
 
-__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ld(const bf16* p) {  // exact: a bf16 is an f32's high half
-  return __uint_as_float(static_cast<uint32_t>(__ldg(reinterpret_cast<const unsigned short*>(p)))
-                         << 16);
-}
 __device__ __forceinline__ void st(float* p, float x) { *p = x; }
 __device__ __forceinline__ void st(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
 
@@ -311,33 +341,6 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int rows, in
     for (int idx = threadIdx.x; idx < rows * d; idx += kThreads) {
       const int r = idx / d, c = idx - r * d;
       cp_async4(dst + r * stride + c, src + idx);
-    }
-  }
-}
-
-// rows x d bf16 values from global into shared memory as f32, at row stride
-// `stride`: 8 values (16 bytes) a load where vec16, else one. The copy
-// converts, so it is a plain load and store, complete at the block's barrier.
-__device__ __forceinline__ void stage(float* dst, const bf16* src, int rows, int d, int stride,
-                                      int vec16) {
-  if (vec16) {
-    const int per_row = d / 8;
-    for (int idx = threadIdx.x; idx < rows * per_row; idx += kThreads) {
-      const int r = idx / per_row, c = (idx - r * per_row) * 8;
-      const uint4 u = __ldg(reinterpret_cast<const uint4*>(src + ((size_t)r * d + c)));
-      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-      float4* out = reinterpret_cast<float4*>(dst + r * stride + c);
-#pragma unroll
-      for (int h = 0; h < 2; ++h)  // the low half of a word is the lower index
-        out[h] = make_float4(__uint_as_float(w[2 * h] << 16),
-                             __uint_as_float(w[2 * h] & 0xffff0000u),
-                             __uint_as_float(w[2 * h + 1] << 16),
-                             __uint_as_float(w[2 * h + 1] & 0xffff0000u));
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < rows * d; idx += kThreads) {
-      const int r = idx / d, c = idx - r * d;
-      dst[r * stride + c] = ld(src + idx);
     }
   }
 }
@@ -610,10 +613,338 @@ t5_attention_bwd_kernel(const Params P) {
   bwd_block<ND, float>(P);
 }
 
-template <int ND>
-__global__ void __launch_bounds__(kThreads, ND <= 2 ? 4 : (ND == 4 ? 2 : 1))
+// ---- the bf16 entry: bf16 operands, m16n8k16 products, 16-key steps ----
+
+namespace tb = t5bf16;
+
+// The A operands of a 16-row strip of a staged matrix over all KD feature
+// steps: held in registers up to D = 64, reloaded by ldmatrix at D = 128.
+template <int KD>
+constexpr int kHeld16 = KD <= 4 ? KD : 1;
+
+template <int KD>
+__device__ __forceinline__ void hold16(uint32_t (&f)[kHeld16<KD>][4], const bf16* x, int r0,
+                                       int lane) {
+  if constexpr (KD <= 4) {
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+      tb::ldsm4(f[kk], tb::a_addr<tb::kStride<KD>>(x, r0, 16 * kk, lane));
+  }
+}
+
+// Scores of a 16 x 16 tile in two C tiles (columns 0..7 and 8..15), each
+// 16-deep feature step in a fresh accumulator added in f32: s = A.Y^T with
+// A's strip held (or reloaded from x at r0) and Y's rows n0..n0+15 staged.
+template <int KD>
+__device__ __forceinline__ void scores16(float (&s)[2][4], const uint32_t (&f)[kHeld16<KD>][4],
+                                         const bf16* x, int r0, const bf16* y, int n0,
+                                         int lane) {
+  constexpr int S = tb::kStride<KD>;
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    uint32_t a[4], b[4];
+    if constexpr (KD <= 4) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[e] = f[kk][e];
+    } else {
+      tb::ldsm4(a, tb::a_addr<S>(x, r0, 16 * kk, lane));
+    }
+    tb::ldsm4(b, tb::b_addr<S>(y, n0, 16 * kk, lane));
+    float c0[4], c1[4];
+    tb::mma0(c0, a, b[0], b[1]);
+    tb::mma0(c1, a, b[2], b[3]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[0][e] = kk == 0 ? c0[e] : s[0][e] + c0[e];
+      s[1][e] = kk == 0 ? c1[e] : s[1][e] + c1[e];
+    }
+  }
+}
+
+// acc += C.Y for an f32 C of 16 rows by 16 (C tiles c0 and c1), split
+// hi + mid + lo, over rows n0..n0+15 of the staged Y: a fresh accumulator per
+// output tile and step, added in f32.
+template <int KD>
+__device__ __forceinline__ void product16(float (&acc)[2 * KD][4], const float (&c0)[4],
+                                          const float (&c1)[4], const bf16* y, int n0,
+                                          int lane) {
+  constexpr int S = tb::kStride<KD>;
+  uint32_t hi[4], mid[4], lo[4];
+  tb::a_from_c_split(hi, mid, lo, c0, c1);
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    uint32_t b[4];
+    tb::ldsm4_t(b, tb::a_addr<S>(y, n0, 16 * kk, lane));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float c[4];
+      tb::mma3(c, hi, mid, lo, b[2 * h], b[2 * h + 1]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[2 * kk + h][e] += c[e];
+    }
+  }
+}
+
+// Values of the bias or the dropout mask at (row roff[r], keys j + 8h + c)
+// into x[4h + 2r + c], the two C tiles' order; clamped as load2 clamps.
+__device__ __forceinline__ void load_tile16(float (&x)[8], const float* src,
+                                            const int (&roff)[2], int j, const Params& P) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      load2(x[4 * h + 2 * r], x[4 * h + 2 * r + 1], src, roff[r], j + 8 * h, P);
+}
+
+// ds of rows[r] by keys j + 8h and j + 8h + 1 (ds[h]: a C tile) into the
+// block's dbias scratch.
+__device__ __forceinline__ void store_ds16(float* part, const float (&ds)[2][4], const Params& P,
+                                           const int (&rows)[2], int j) {
+  store_ds(part, ds[0], P, rows, j);
+  store_ds(part, ds[1], P, rows, j + 8);
+}
+
+// Features c and c + 1 of an output row, those below d.
+__device__ __forceinline__ void store_pair(bf16* dst, float a, float b, int c, const Params& P) {
+  if (c < P.d) st(dst, a);
+  if (c + 1 < P.d) st(dst + 1, b);
+}
+
+// Phase A at bf16, a warp per 16-row query strip: pass 1 (m, l, u), pass 2
+// (p, dp, ds; dq += ds.K), 16 keys a step.
+template <int KD>
+__device__ __forceinline__ void phase_a_bf16(const Params& P, const bf16* sq, const bf16* sdo,
+                                             const bf16* sk, const bf16* sv, float4* stats,
+                                             const float* madd, const float* bias_h,
+                                             const float* dm_hb, bf16* dq_hb, float* part,
+                                             int lqp, int lkp, int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  for (int r0 = warp * 16; r0 < lqp; r0 += kWarps * 16) {  // warp-uniform
+    uint32_t qa[kHeld16<KD>][4], oa[kHeld16<KD>][4];
+    hold16<KD>(qa, sq, r0, lane);
+    hold16<KD>(oa, sdo, r0, lane);
+    const int rows[2] = {r0 + g, r0 + g + 8};
+    const int roff[2] = {min(rows[0], P.lq - 1) * P.lk, min(rows[1], P.lq - 1) * P.lk};
+
+    // pass 1: online max m, l = sum e^(s-m), u = sum e^(s-m) * dp * dm
+    float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.0f, 0.0f}, u[2] = {0.0f, 0.0f};
+    for (int n0 = 0; n0 < lkp; n0 += 16) {
+      const int j = n0 + 2 * t;
+      float bv[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      float dm[8] = {1.0f, 1.0f, 1.0f, 1.0f, 1.0f, 1.0f, 1.0f, 1.0f};
+      if (bias_h) load_tile16(bv, bias_h, roff, j, P);
+      if (dm_hb) load_tile16(dm, dm_hb, roff, j, P);
+      const float2 mk[2] = {*reinterpret_cast<const float2*>(madd + j),
+                            *reinterpret_cast<const float2*>(madd + j + 8)};
+      float s[2][4], dp[2][4];
+      scores16<KD>(s, qa, sq, r0, sk, n0, lane);
+      scores16<KD>(dp, oa, sdo, r0, sv, n0, lane);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float x[4], w[4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 2 * r + c;
+            x[2 * h + c] = score(s[h][e], bv[4 * h + e], c ? mk[h].y : mk[h].x, P, rows[r],
+                                 j + 8 * h + c);
+            w[2 * h + c] = dp[h][e] * dm[4 * h + e];
+          }
+        const float mx = fmaxf(m[r], fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3])));
+        const float scale = mx > m[r] ? expf(m[r] - mx) : 1.0f;  // expf(0) is 1
+        float e[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) e[c] = expf(x[c] - mx);
+        l[r] = l[r] * scale + ((e[0] + e[1]) + (e[2] + e[3]));
+        u[r] = u[r] * scale + ((e[0] * w[0] + e[1] * w[1]) + (e[2] * w[2] + e[3] * w[3]));
+        m[r] = mx;
+      }
+    }
+    // the four lanes of a quad hold one row's keys: combine, identically on each
+    float inv_l[2], delta[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float mo = __shfl_xor_sync(0xffffffffu, m[r], off);
+        const float lo = __shfl_xor_sync(0xffffffffu, l[r], off);
+        const float uo = __shfl_xor_sync(0xffffffffu, u[r], off);
+        const float mx = fmaxf(m[r], mo);
+        const float a = expf(m[r] - mx), b = expf(mo - mx);
+        l[r] = __fadd_rn(__fmul_rn(l[r], a), __fmul_rn(lo, b));  // commutative: no FMA
+        u[r] = __fadd_rn(__fmul_rn(u[r], a), __fmul_rn(uo, b));
+        m[r] = mx;
+      }
+      const float den = fmaxf(l[r], 1e-30f);
+      // a padding row's p is exactly 0: e^(s - FLT_MAX) is 0 for any finite s
+      const bool real = rows[r] < P.lq;
+      inv_l[r] = real ? 1.0f / den : 0.0f;
+      delta[r] = real ? u[r] / den : 0.0f;
+      if (!real) m[r] = FLT_MAX;
+      if (t == 0) stats[rows[r]] = make_float4(m[r], inv_l[r], delta[r], 0.0f);
+    }
+
+    // pass 2: p, dp, ds; dq += ds.K (ds split in three); ds into the dbias scratch
+    float acc[2 * KD][4];
+#pragma unroll
+    for (int nd = 0; nd < 2 * KD; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nd][e] = 0.0f;
+    for (int n0 = 0; n0 < lkp; n0 += 16) {
+      const int j = n0 + 2 * t;
+      float bv[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      float dm[8] = {1.0f, 1.0f, 1.0f, 1.0f, 1.0f, 1.0f, 1.0f, 1.0f};
+      if (bias_h) load_tile16(bv, bias_h, roff, j, P);
+      if (dm_hb) load_tile16(dm, dm_hb, roff, j, P);
+      const float2 mk[2] = {*reinterpret_cast<const float2*>(madd + j),
+                            *reinterpret_cast<const float2*>(madd + j + 8)};
+      float s[2][4], dp[2][4];
+      scores16<KD>(s, qa, sq, r0, sk, n0, lane);
+      scores16<KD>(dp, oa, sdo, r0, sv, n0, lane);
+      float ds[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float sc = score(s[h][e], bv[4 * h + e], (e & 1) ? mk[h].y : mk[h].x, P,
+                                 rows[r], j + 8 * h + (e & 1));
+          const float p = expf(sc - m[r]) * inv_l[r];
+          ds[h][e] = p * (dp[h][e] * dm[4 * h + e] - delta[r]);
+        }
+      if (part) store_ds16(part, ds, P, rows, j);
+      product16<KD>(acc, ds[0], ds[1], sk, n0, lane);
+    }
+#pragma unroll
+    for (int nd = 0; nd < 2 * KD; ++nd)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = rows[r], c = 8 * nd + 2 * t;
+        if (i < P.lq)
+          store_pair(dq_hb + ((size_t)i * P.d + c), acc[nd][2 * r], acc[nd][2 * r + 1], c, P);
+      }
+  }
+}
+
+// Phase B at bf16, a warp per 16-key strip: s^T = K.Q^T and dp^T = V.dO^T
+// from the stored statistics; dk += ds^T.Q and dv += (p*dm)^T.dO (ds and p*dm
+// split in three), 16 queries a step.
+template <int KD>
+__device__ __forceinline__ void phase_b_bf16(const Params& P, const bf16* sq, const bf16* sdo,
+                                             const bf16* sk, const bf16* sv,
+                                             const float4* stats, const float* madd,
+                                             const float* bias_h, const float* dm_hb,
+                                             bf16* dk_hb, bf16* dv_hb, int lqp, int lkp,
+                                             int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  for (int c0 = warp * 16; c0 < lkp; c0 += kWarps * 16) {  // warp-uniform
+    uint32_t ka[kHeld16<KD>][4], va[kHeld16<KD>][4];
+    hold16<KD>(ka, sk, c0, lane);
+    hold16<KD>(va, sv, c0, lane);
+    const int keys[2] = {c0 + g, c0 + g + 8};
+    const float mk[2] = {madd[keys[0]], madd[keys[1]]};
+    const int kcol[2] = {min(keys[0], P.lk - 1), min(keys[1], P.lk - 1)};
+    float dka[2 * KD][4], dva[2 * KD][4];
+#pragma unroll
+    for (int nd = 0; nd < 2 * KD; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[nd][e] = dva[nd][e] = 0.0f;
+    for (int n0 = 0; n0 < lqp; n0 += 16) {  // 16 queries at a time
+      // query of C index e in tile h: n0 + 8h + 2t + (e & 1); key: keys[e >> 1]
+      float bv[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      float dm[8] = {1.0f, 1.0f, 1.0f, 1.0f, 1.0f, 1.0f, 1.0f, 1.0f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int off = min(n0 + 8 * h + 2 * t + (e & 1), P.lq - 1) * P.lk + kcol[e >> 1];
+          if (bias_h) bv[4 * h + e] = __ldg(bias_h + off);
+          if (dm_hb) dm[4 * h + e] = __ldg(dm_hb + off);
+        }
+      float s[2][4], dp[2][4];
+      scores16<KD>(s, ka, sk, c0, sq, n0, lane);
+      scores16<KD>(dp, va, sv, c0, sdo, n0, lane);
+      float ds[2][4], pd[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q0 = n0 + 8 * h + 2 * t;
+        const float4 st[2] = {stats[q0], stats[q0 + 1]};  // m, 1/l, delta
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float4 q = st[e & 1];
+          const float sc = score(s[h][e], bv[4 * h + e], mk[r], P, q0 + (e & 1), keys[r]);
+          const float p = expf(sc - q.x) * q.y;
+          ds[h][e] = p * (dp[h][e] * dm[4 * h + e] - q.z);
+          pd[h][e] = p * dm[4 * h + e];
+        }
+      }
+      product16<KD>(dka, ds[0], ds[1], sq, n0, lane);
+      product16<KD>(dva, pd[0], pd[1], sdo, n0, lane);
+    }
+#pragma unroll
+    for (int nd = 0; nd < 2 * KD; ++nd)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int jk = keys[r], c = 8 * nd + 2 * t;
+        if (jk < P.lk) {
+          store_pair(dk_hb + ((size_t)jk * P.d + c), dka[nd][2 * r], dka[nd][2 * r + 1], c, P);
+          store_pair(dv_hb + ((size_t)jk * P.d + c), dva[nd][2 * r], dva[nd][2 * r + 1], c, P);
+        }
+      }
+  }
+}
+
+// One block of one flat row hb at bf16: Q, dO, K and V staged as bf16 by
+// cp.async, rows padded to 16 and features to 16, 32, 64 or 128.
+template <int KD>
+__device__ __forceinline__ void bwd_block_bf16(const Params& P) {
+  extern __shared__ __align__(16) unsigned char smem_bf16[];
+  constexpr int S = tb::kStride<KD>;
+  const int lqp = tb::pad16(P.lq), lkp = tb::pad16(P.lk);
+  bf16* sq = reinterpret_cast<bf16*>(smem_bf16);
+  bf16* sdo = sq + lqp * S;
+  bf16* sk = sdo + lqp * S;
+  bf16* sv = sk + lkp * S;
+  float4* stats = reinterpret_cast<float4*>(sv + lkp * S);  // 16-aligned: S * 2 bytes a row
+  float* madd = reinterpret_cast<float*>(stats + lqp);
+
+  const int hb = blockIdx.x, h = hb / P.batch, b = hb - h * P.batch;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t q_off = (size_t)hb * P.lq * P.d, kv_off = (size_t)hb * P.lk * P.d;
+  const float* bias_h = P.pos_bias ? P.pos_bias + (size_t)h * P.lq * P.lk : nullptr;
+  const float* dm_hb = P.dmask ? P.dmask + (size_t)hb * P.lq * P.lk : nullptr;
+  float* part = P.dbias_part ? P.dbias_part + (size_t)hb * P.lq * P.lk : nullptr;
+
+  tb::zero_pad(sq, P.lq, lqp, P.d, 16 * KD, S);  // the staging below never writes these
+  tb::zero_pad(sdo, P.lq, lqp, P.d, 16 * KD, S);
+  tb::zero_pad(sk, P.lk, lkp, P.d, 16 * KD, S);
+  tb::zero_pad(sv, P.lk, lkp, P.d, 16 * KD, S);
+  tb::stage(sq, static_cast<const bf16*>(P.q) + q_off, P.lq, P.d, S, P.vec16);
+  tb::stage(sdo, static_cast<const bf16*>(P.dout) + q_off, P.lq, P.d, S, P.vec16);
+  tb::stage(sk, static_cast<const bf16*>(P.k) + kv_off, P.lk, P.d, S, P.vec16);
+  tb::stage(sv, static_cast<const bf16*>(P.v) + kv_off, P.lk, P.d, S, P.vec16);
+  asm volatile("cp.async.commit_group;");
+  for (int j = threadIdx.x; j < lkp; j += kThreads)
+    madd[j] = j >= P.lk  ? -INFINITY
+              : P.kv_mask ? (1.0f - (float)P.kv_mask[(size_t)b * P.lk + j]) * kNegInf
+                          : 0.0f;
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  __syncthreads();
+
+  phase_a_bf16<KD>(P, sq, sdo, sk, sv, stats, madd, bias_h, dm_hb,
+                   static_cast<bf16*>(P.dq) + q_off, part, lqp, lkp, warp, lane);
+  __syncthreads();  // the statistics of every query row
+  phase_b_bf16<KD>(P, sq, sdo, sk, sv, stats, madd, bias_h, dm_hb,
+                   static_cast<bf16*>(P.dk) + kv_off, static_cast<bf16*>(P.dv) + kv_off, lqp,
+                   lkp, warp, lane);
+}
+
+template <int KD>
+__global__ void __launch_bounds__(kThreads, KD == 1 ? 4 : (KD == 2 ? 2 : 1))
 t5_attention_bwd_bf16_kernel(const Params P) {
-  bwd_block<ND, bf16>(P);
+  bwd_block_bf16<KD>(P);
 }
 
 // dbias[h, e] = sum over chunks c, in order, of part[h, c, e].
@@ -639,17 +970,44 @@ t5_attention_dbias_reduce_kernel(const float* __restrict__ part, float* __restri
 
 using Kernel = void (*)(Params);
 
-// The instantiation for I/O type T at ND feature steps.
+// The kernel for I/O type T at feature width d, and its shared memory at (lq, lk, d).
 template <typename T>
-Kernel kernel_of(int nd) {
-  constexpr bool f = sizeof(T) == sizeof(float);
-  switch (nd) {
-    case 1: return f ? &t5_attention_bwd_kernel<1> : &t5_attention_bwd_bf16_kernel<1>;
-    case 2: return f ? &t5_attention_bwd_kernel<2> : &t5_attention_bwd_bf16_kernel<2>;
-    case 4: return f ? &t5_attention_bwd_kernel<4> : &t5_attention_bwd_bf16_kernel<4>;
-    case 8: return f ? &t5_attention_bwd_kernel<8> : &t5_attention_bwd_bf16_kernel<8>;
-    default: return f ? &t5_attention_bwd_kernel<16> : &t5_attention_bwd_bf16_kernel<16>;
+Kernel kernel_of(int d);
+
+template <>
+Kernel kernel_of<float>(int d) {
+  switch (nd_of(d)) {
+    case 1: return &t5_attention_bwd_kernel<1>;
+    case 2: return &t5_attention_bwd_kernel<2>;
+    case 4: return &t5_attention_bwd_kernel<4>;
+    case 8: return &t5_attention_bwd_kernel<8>;
+    default: return &t5_attention_bwd_kernel<16>;
   }
+}
+
+template <>
+Kernel kernel_of<bf16>(int d) {
+  switch (tb::kd_of(d)) {
+    case 1: return &t5_attention_bwd_bf16_kernel<1>;
+    case 2: return &t5_attention_bwd_bf16_kernel<2>;
+    case 4: return &t5_attention_bwd_bf16_kernel<4>;
+    default: return &t5_attention_bwd_bf16_kernel<8>;
+  }
+}
+
+template <typename T>
+size_t smem_bytes(int lq, int lk, int d);
+
+template <>
+size_t smem_bytes<float>(int lq, int lk, int d) {
+  return smem_floats(lq, lk, d) * sizeof(float);
+}
+
+template <>
+size_t smem_bytes<bf16>(int lq, int lk, int d) {  // Q, dO, K, V in bf16; stats, key mask f32
+  const size_t lqp = tb::pad16(lq), lkp = tb::pad16(lk);
+  return 2 * (lqp + lkp) * (16 * tb::kd_of(d) + 8) * sizeof(bf16) + 4 * lqp * sizeof(float) +
+         lkp * sizeof(float);
 }
 
 cudaError_t prepare(Kernel k, size_t smem) {
@@ -677,20 +1035,18 @@ bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
-size_t smem_bytes(int lq, int lk, int d) { return smem_floats(lq, lk, d) * sizeof(float); }
-
 template <typename T>
 int blocks_per_sm(int lq, int lk, int d) {
-  const size_t smem = smem_bytes(lq, lk, d);
+  const size_t smem = smem_bytes<T>(lq, lk, d);
   if (smem > kMaxSmem || d <= 0 || d > kMaxD) return -static_cast<int>(cudaErrorInvalidValue);
-  return occupancy(kernel_of<T>(nd_of(d)), smem);
+  return occupancy(kernel_of<T>(d), smem);
 }
 
 template <typename T>
 int run(const void* q, const void* k, const void* v, const void* pos_bias, const void* kv_mask,
         const void* dmask, const void* dout, void* dq, void* dk, void* dv, void* dbias_part,
         int hb, int batch, int lq, int lk, int d, int causal, void* stream) {
-  const size_t smem = smem_bytes(lq, lk, d);
+  const size_t smem = smem_bytes<T>(lq, lk, d);
   if (smem > kMaxSmem || hb <= 0 || batch <= 0 || hb % batch != 0 || lq <= 0 || lk <= 0 ||
       d <= 0 || d > kMaxD)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -701,7 +1057,7 @@ int run(const void* q, const void* k, const void* v, const void* pos_bias, const
            d % per16 == 0 && aligned(q, 16) && aligned(k, 16) && aligned(v, 16) &&
                aligned(dout, 16),
            lk % 2 == 0 && aligned(pos_bias, 8) && aligned(dmask, 8) && aligned(dbias_part, 8)};
-  return static_cast<int>(launch(kernel_of<T>(nd_of(d)), P, hb, smem,
+  return static_cast<int>(launch(kernel_of<T>(d), P, hb, smem,
                                  static_cast<cudaStream_t>(stream)));
 }
 
@@ -709,8 +1065,13 @@ int run(const void* q, const void* k, const void* v, const void* pos_bias, const
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs for (lq, lk, d), at either I/O type.
-size_t t5_attention_bwd_smem_bytes(int lq, int lk, int d) { return smem_bytes(lq, lk, d); }
+// Bytes of dynamic shared memory one block of the f32 (bf16) kernel needs for (lq, lk, d).
+size_t t5_attention_bwd_smem_bytes(int lq, int lk, int d) {
+  return smem_bytes<float>(lq, lk, d);
+}
+size_t t5_attention_bwd_bf16_smem_bytes(int lq, int lk, int d) {
+  return smem_bytes<bf16>(lq, lk, d);
+}
 
 // Blocks of the f32 (bf16) backward kernel resident on one SM at (lq, lk, d),
 // from cudaOccupancyMaxActiveBlocksPerMultiprocessor; minus the CUDA error on
@@ -720,6 +1081,19 @@ int t5_attention_bwd_blocks_per_sm(int lq, int lk, int d) {
 }
 int t5_attention_bwd_bf16_blocks_per_sm(int lq, int lk, int d) {
   return blocks_per_sm<bf16>(lq, lk, d);
+}
+
+// Registers per thread and bytes of local memory per thread (spills and
+// stack; 0 if nothing spills) of the bf16 backward kernel at width d, as the
+// loaded build has them (cudaFuncGetAttributes); returns the CUDA error.
+int t5_attention_bwd_bf16_registers(int d, int* registers, int* local_bytes) {
+  if (d <= 0 || d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes a{};
+  const cudaError_t e =
+      cudaFuncGetAttributes(&a, reinterpret_cast<const void*>(kernel_of<bf16>(d)));
+  *registers = a.numRegs;
+  *local_bytes = static_cast<int>(a.localSizeBytes);
+  return static_cast<int>(e);
 }
 
 const char* t5_attention_bwd_error_string(int err) {

@@ -77,20 +77,42 @@
 //     fixed order of summation, which does not depend on how the strips are
 //     split over blocks, so two calls give bit-equal outputs.
 //
-// The bf16 entry point is the reference's kernel at a bf16 compute dtype: q, k
-// and v are bf16, the bias and the dropout mask stay f32, out is bf16. It is
-// the same code instantiated for bf16 I/O: q, k and v are converted to f32 as
-// they are loaded (K and V by plain 16-byte loads instead of cp.async, since
-// the copy converts), so the staging, the shared memory and the limits
-// (D <= 128, Lk <= 1,416 at D = 16) are the f32 kernel's. A bf16 value is
-// exact in TF32, so the 3xTF32 split of q, k and v has a zero low part and
-// q.k comes out exact before the f32 sums. As the reference rounds the
-// probabilities to v's dtype before P.V (f32 accumulation), this kernel
-// rounds each tile's e^(s - m) * dm to bf16 before its P.V; the reference
-// rounds the normalised probability, so the two round at different points,
-// a difference of the order of one bf16 rounding of the output. out is
-// rounded to bf16 once, at its store. The bytes of q, k, v and out halve;
-// the f32 dropout mask, when given, stays the largest input.
+// The bf16 entry point (t5_attention_fwd_bf16) replaces the same Pallas kernel
+// at a bf16 compute dtype: `_fwd_kernel` casts bf16 q and k to f32 for q.k,
+// rounds the probabilities to v's dtype and takes P.V with f32 accumulation.
+// The bias and the dropout mask stay f32 inputs; out is bf16, rounded once at
+// its store. Bound on this card: the bytes halve for q, k, v and out, so with
+// the f32 dropout mask (4 bytes a score, 99.7 MB at the decoder shape) it is
+// bound by bytes (0.036 ms there); without it the bound is 0.006 ms and the
+// kernel is bound by the instructions it issues per score. It has its own
+// kernel (the helpers in t5_attention_bf16.cuh), designed for bf16:
+//
+//   - K and V staged as bf16 by 16-byte cp.async, at a row stride of D + 8
+//     values padded to 16, 32, 64 or 128 (free of bank conflicts for
+//     ldmatrix), keys padded to 16 with zeros: 16,000 bytes at Lk = 156,
+//     D = 16, against the f32 kernel's 26,240.
+//   - both products as one mma.sync.m16n8k16 bf16 pass with f32 accumulators:
+//     a bf16 product is exact in f32, so q.k is the reference's f32 sum in
+//     another order, and P.V takes p rounded to bf16 as the reference does.
+//     At D = 16 the scores of 16 keys are two mma, where the f32 design's
+//     3xTF32 took twelve. B operands come by ldmatrix.x4 (K as it lies, V
+//     transposed); q's A operands are read once per strip from global memory.
+//   - 16 keys a step: lane t holds keys 2t, 2t + 1, 2t + 8 and 2t + 9 of its
+//     two rows, the two accumulator tiles of the step, which are exactly the
+//     A operand of P.V, so e^(s - m) * dm goes from one product to the next
+//     with one pack per register. The online softmax rescales once per 16
+//     keys. Each step's e^(s - m) * dm is rounded to bf16 before P.V (the
+//     reference rounds the normalised probability: the two round at points a
+//     rounding apart, within one bf16 ulp of out).
+//   - the rest as the f32 kernel: a warp per 16-row strip, bias and dropout
+//     mask read one step ahead in the accumulator's layout, padding keys at
+//     -inf, accurate expf, one owner per output, no atomics (bit-equal calls).
+//   The softmax stays online: holding a strip's whole row of scores in
+//   registers (80 a lane at Lk = 160) would save the rescales but not the
+//   exps, and was not built. At D = 16 a step of 16 keys by 16 rows issues
+//   360 warp instructions (1.4 per score), where the f32 kernel instantiated
+//   for bf16 I/O issued 398 per 8 keys (3.1 per score); counted in the SASS
+//   by genrec_tpu_torch/tools/sass_loops.py.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,6 +121,8 @@
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+
+#include "t5_attention_bf16.cuh"
 
 namespace {
 
@@ -143,10 +167,6 @@ struct Params {
 // ---- f32 and bf16 I/O ----
 
 __device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ld(const bf16* p) {  // exact: a bf16 is an f32's high half
-  return __uint_as_float(static_cast<uint32_t>(__ldg(reinterpret_cast<const unsigned short*>(p)))
-                         << 16);
-}
 __device__ __forceinline__ void st(float* p, float x) { *p = x; }
 __device__ __forceinline__ void st(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
 __device__ __forceinline__ void st2(float* p, float a, float b) {
@@ -155,12 +175,8 @@ __device__ __forceinline__ void st2(float* p, float a, float b) {
 __device__ __forceinline__ void st2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
-// A probability as the P.V product takes it: f32, or rounded to bf16 as the
-// reference rounds p to v's dtype.
+// A probability as the f32 P.V product takes it.
 __device__ __forceinline__ float as_p(float x, const float*) { return x; }
-__device__ __forceinline__ float as_p(float x, const bf16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 // ---- TF32 tensor-core helpers ----
 
@@ -335,33 +351,6 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int rows, in
   }
 }
 
-// rows x d bf16 values from global into shared memory as f32, at row stride
-// `stride`: 8 values (16 bytes) a load where vec16, else one. The copy
-// converts, so it is a plain load and store, complete at the block's barrier.
-__device__ __forceinline__ void stage(float* dst, const bf16* src, int rows, int d, int stride,
-                                      int vec16) {
-  if (vec16) {
-    const int per_row = d / 8;
-    for (int idx = threadIdx.x; idx < rows * per_row; idx += blockDim.x) {
-      const int r = idx / per_row, c = (idx - r * per_row) * 8;
-      const uint4 u = __ldg(reinterpret_cast<const uint4*>(src + ((size_t)r * d + c)));
-      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-      float4* out = reinterpret_cast<float4*>(dst + r * stride + c);
-#pragma unroll
-      for (int h = 0; h < 2; ++h)  // the low half of a word is the lower index
-        out[h] = make_float4(__uint_as_float(w[2 * h] << 16),
-                             __uint_as_float(w[2 * h] & 0xffff0000u),
-                             __uint_as_float(w[2 * h + 1] << 16),
-                             __uint_as_float(w[2 * h + 1] & 0xffff0000u));
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < rows * d; idx += blockDim.x) {
-      const int r = idx / d, c = idx - r * d;
-      dst[r * stride + c] = ld(src + idx);
-    }
-  }
-}
-
 // Zeros where a staged matrix has no data: rows >= rows, features >= d.
 __device__ __forceinline__ void zero_pad(float* dst, int rows, int rows_p, int d, int dp,
                                          int stride) {
@@ -514,25 +503,241 @@ t5_attention_fwd_kernel(const Params P) {
   fwd_block<ND, float>(P);
 }
 
-template <int ND>
-__global__ void __launch_bounds__(kThreads, ND <= 2 ? kMinBlocksD16 : (ND == 4 ? 2 : 1))
+// ---- the bf16 entry: bf16 operands, m16n8k16 products, 16-key steps ----
+
+namespace tb = t5bf16;
+
+// The A operand of rows r0..r0+15, features c0..c0+15 of the flat row's q (lq
+// x d bf16 values in global memory), zero past the last row and feature.
+__device__ __forceinline__ void load_q16(uint32_t (&a)[4], const bf16* q, const Params& P,
+                                         int r0, int c0, int g, int t) {
+  const unsigned short* x = reinterpret_cast<const unsigned short*>(q);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int i = r0 + g + 8 * (e & 1), c = c0 + 2 * t + 8 * (e >> 1);
+    const bool row = i < P.lq;
+    const uint32_t lo = row && c < P.d ? __ldg(x + (i * P.d + c)) : 0u;
+    const uint32_t hi = row && c + 1 < P.d ? __ldg(x + (i * P.d + c + 1)) : 0u;
+    a[e] = lo | (hi << 16);
+  }
+}
+
+// The bias and dropout-mask values of a 16-key step (lane t: keys j, j + 1,
+// j + 8, j + 9 of rows roff[0] and roff[1], j = n0 + 2t): x[4h + 2r + c] is
+// row r, key j + 8h + c, the order of the two C tiles' values. 0 and 1 where
+// none is given.
+__device__ __forceinline__ void load_tile16(float (&bv)[8], float (&dm)[8], const float* bias_h,
+                                            const float* dm_hb, const int (&roff)[2], int j,
+                                            const Params& P) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int x = 4 * h + 2 * r;
+      if (bias_h) load2(bv[x], bv[x + 1], bias_h, roff[r], j + 8 * h, P);
+      else bv[x] = bv[x + 1] = 0.0f;
+      if (dm_hb) load2(dm[x], dm[x + 1], dm_hb, roff[r], j + 8 * h, P);
+      else dm[x] = dm[x + 1] = 1.0f;
+    }
+}
+
+// A warp's 16-row query strip at bf16: q.k and P.V as one m16n8k16 bf16 pass
+// each (exact products, f32 sums), the online softmax once per 16 keys.
+template <int KD>
+__device__ __forceinline__ void strip_bf16(const Params& P, const bf16* q_hb, const bf16* sk,
+                                           const bf16* sv, const float* madd,
+                                           const float* bias_h, const float* dm_hb,
+                                           bf16* out_hb, int r0, int lkp, int lane) {
+  constexpr int S = tb::kStride<KD>;
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t qa[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) load_q16(qa[kk], q_hb, P, r0, 16 * kk, g, t);
+  const int rows[2] = {r0 + g, r0 + g + 8};
+  // padding rows read the last row of the bias and the mask (never stored)
+  const int roff[2] = {min(rows[0], P.lq - 1) * P.lk, min(rows[1], P.lq - 1) * P.lk};
+
+  // m, l and acc as in the f32 strip, over 16 keys a step
+  float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.0f, 0.0f};
+  float acc[2 * KD][4];
+#pragma unroll
+  for (int nd = 0; nd < 2 * KD; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.0f;
+  float bv[8], dm[8];
+  load_tile16(bv, dm, bias_h, dm_hb, roff, 2 * t, P);
+  for (int n0 = 0; n0 < lkp; n0 += 16) {
+    const int j = n0 + 2 * t;
+    float bn[8], dn[8];  // the next step's (clamped past the end: never used there)
+    load_tile16(bn, dn, bias_h, dm_hb, roff, j + 16, P);
+    const float2 mk[2] = {*reinterpret_cast<const float2*>(madd + j),
+                          *reinterpret_cast<const float2*>(madd + j + 8)};
+    // s[h]: keys n0 + 8h.. of the strip; each 16-deep step in a fresh
+    // accumulator, added in f32
+    float s[2][4];
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t b[4];
+      tb::ldsm4(b, tb::b_addr<S>(sk, n0, 16 * kk, lane));
+      float c0[4], c1[4];
+      tb::mma0(c0, qa[kk], b[0], b[1]);
+      tb::mma0(c1, qa[kk], b[2], b[3]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[0][e] = kk == 0 ? c0[e] : s[0][e] + c0[e];
+        s[1][e] = kk == 0 ? c1[e] : s[1][e] + c1[e];
+      }
+    }
+    float p[2][4], scale[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float x[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        x[2 * h] = score(s[h][2 * r], bv[4 * h + 2 * r], mk[h].x, P, rows[r], j + 8 * h);
+        x[2 * h + 1] =
+            score(s[h][2 * r + 1], bv[4 * h + 2 * r + 1], mk[h].y, P, rows[r], j + 8 * h + 1);
+      }
+      float mx = fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(m[r], mx);
+      scale[r] = mx > m[r] ? expf(m[r] - mx) : 1.0f;  // expf(0) is 1
+      float e[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) e[c] = expf(x[c] - mx);
+      l[r] = l[r] * scale[r] + ((e[0] + e[1]) + (e[2] + e[3]));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        p[h][2 * r] = e[2 * h] * dm[4 * h + 2 * r];
+        p[h][2 * r + 1] = e[2 * h + 1] * dm[4 * h + 2 * r + 1];
+      }
+      m[r] = mx;
+    }
+    // P.V: e^(s - m) * dm rounded to bf16 (the reference rounds p to v's
+    // dtype), V's B operands by a transposed ldmatrix; acc = acc * scale + P.V
+    uint32_t a[4];
+    tb::a_from_c(a, p[0], p[1]);
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t b[4];
+      tb::ldsm4_t(b, tb::a_addr<S>(sv, n0, 16 * kk, lane));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float c[4];
+        tb::mma0(c, a, b[2 * h], b[2 * h + 1]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[2 * kk + h][e] = fmaf(acc[2 * kk + h][e], scale[e >> 1], c[e]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) bv[e] = bn[e], dm[e] = dn[e];
+  }
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = __fadd_rn(l[r], __shfl_xor_sync(0xffffffffu, l[r], 1));
+    l[r] = __fadd_rn(l[r], __shfl_xor_sync(0xffffffffu, l[r], 2));
+    den[r] = fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int nd = 0; nd < 2 * KD; ++nd)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = rows[r], c = 8 * nd + 2 * t;
+      if (i >= P.lq || c >= P.d) continue;
+      const float o0 = acc[nd][2 * r] / den[r], o1 = acc[nd][2 * r + 1] / den[r];
+      bf16* dst = out_hb + (i * P.d + c);
+      if (P.out2) {  // d even: c + 1 < d
+        st2(dst, o0, o1);
+      } else {
+        st(dst, o0);
+        if (c + 1 < P.d) st(dst + 1, o1);
+      }
+    }
+}
+
+// A block of one flat row hb (blockIdx.x) and strips blockIdx.y * spb onwards,
+// bf16 q, k, v and out: K and V staged as bf16 by cp.async, keys padded to 16.
+template <int KD>
+__device__ __forceinline__ void fwd_block_bf16(const Params& P) {
+  extern __shared__ __align__(16) unsigned char smem_bf16[];
+  constexpr int S = tb::kStride<KD>;
+  const int lkp = tb::pad16(P.lk);
+  bf16* sk = reinterpret_cast<bf16*>(smem_bf16);
+  bf16* sv = sk + lkp * S;
+  float* madd = reinterpret_cast<float*>(sv + lkp * S);  // lkp * S * 2 bytes: 16-aligned
+
+  const int hb = blockIdx.x, h = hb / P.batch, b = hb - h * P.batch;
+  const size_t kv_off = (size_t)hb * P.lk * P.d;
+  tb::zero_pad(sk, P.lk, lkp, P.d, 16 * KD, S);  // the staging below never writes these
+  tb::zero_pad(sv, P.lk, lkp, P.d, 16 * KD, S);
+  tb::stage(sk, static_cast<const bf16*>(P.k) + kv_off, P.lk, P.d, S, P.vec16);
+  tb::stage(sv, static_cast<const bf16*>(P.v) + kv_off, P.lk, P.d, S, P.vec16);
+  asm volatile("cp.async.commit_group;");
+  for (int j = threadIdx.x; j < lkp; j += blockDim.x)
+    madd[j] = j >= P.lk  ? -INFINITY
+              : P.kv_mask ? (1.0f - (float)P.kv_mask[(size_t)b * P.lk + j]) * kNegInf
+                          : 0.0f;
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bf16* q_hb = static_cast<const bf16*>(P.q) + (size_t)hb * P.lq * P.d;
+  const float* bias_h = P.pos_bias ? P.pos_bias + (size_t)h * P.lq * P.lk : nullptr;
+  const float* dm_hb = P.dmask ? P.dmask + (size_t)hb * P.lq * P.lk : nullptr;
+  bf16* out_hb = static_cast<bf16*>(P.out) + (size_t)hb * P.lq * P.d;
+  const int first = blockIdx.y * P.spb, last = min(first + P.spb, strips_of(P.lq));
+  for (int st = first + warp; st < last; st += blockDim.x >> 5)  // warp-uniform
+    strip_bf16<KD>(P, q_hb, sk, sv, madd, bias_h, dm_hb, out_hb, 16 * st, lkp, lane);
+}
+
+template <int KD>
+__global__ void __launch_bounds__(kThreads, KD == 1 ? kMinBlocksD16 : (KD == 2 ? 2 : 1))
 t5_attention_fwd_bf16_kernel(const Params P) {
-  fwd_block<ND, bf16>(P);
+  fwd_block_bf16<KD>(P);
 }
 
 using Kernel = void (*)(Params);
 
-// The instantiation for I/O type T at ND feature steps.
+// The kernel for I/O type T at feature width d, and its shared memory at (lk, d).
 template <typename T>
-Kernel kernel_of(int nd) {
-  constexpr bool f = sizeof(T) == sizeof(float);
-  switch (nd) {
-    case 1: return f ? &t5_attention_fwd_kernel<1> : &t5_attention_fwd_bf16_kernel<1>;
-    case 2: return f ? &t5_attention_fwd_kernel<2> : &t5_attention_fwd_bf16_kernel<2>;
-    case 4: return f ? &t5_attention_fwd_kernel<4> : &t5_attention_fwd_bf16_kernel<4>;
-    case 8: return f ? &t5_attention_fwd_kernel<8> : &t5_attention_fwd_bf16_kernel<8>;
-    default: return f ? &t5_attention_fwd_kernel<16> : &t5_attention_fwd_bf16_kernel<16>;
+Kernel kernel_of(int d);
+
+template <>
+Kernel kernel_of<float>(int d) {
+  switch (nd_of(d)) {
+    case 1: return &t5_attention_fwd_kernel<1>;
+    case 2: return &t5_attention_fwd_kernel<2>;
+    case 4: return &t5_attention_fwd_kernel<4>;
+    case 8: return &t5_attention_fwd_kernel<8>;
+    default: return &t5_attention_fwd_kernel<16>;
   }
+}
+
+template <>
+Kernel kernel_of<bf16>(int d) {
+  switch (tb::kd_of(d)) {
+    case 1: return &t5_attention_fwd_bf16_kernel<1>;
+    case 2: return &t5_attention_fwd_bf16_kernel<2>;
+    case 4: return &t5_attention_fwd_bf16_kernel<4>;
+    default: return &t5_attention_fwd_bf16_kernel<8>;
+  }
+}
+
+template <typename T>
+size_t smem_bytes(int lk, int d);
+
+template <>
+size_t smem_bytes<float>(int lk, int d) {
+  return smem_floats(lk, d) * sizeof(float);
+}
+
+template <>
+size_t smem_bytes<bf16>(int lk, int d) {  // K and V in bf16, the key mask in f32
+  const size_t lkp = tb::pad16(lk);
+  return 2 * lkp * (16 * tb::kd_of(d) + 8) * sizeof(bf16) + lkp * sizeof(float);
 }
 
 cudaError_t prepare(Kernel k, size_t smem) {
@@ -572,21 +777,19 @@ bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
-size_t smem_bytes(int lk, int d) { return smem_floats(lk, d) * sizeof(float); }
-
 template <typename T>
 int blocks_per_sm(int lq, int lk, int d) {
-  const size_t smem = smem_bytes(lk, d);
+  const size_t smem = smem_bytes<T>(lk, d);
   if (smem > kMaxSmem || lq <= 0 || lk <= 0 || d <= 0 || d > kMaxD)
     return -static_cast<int>(cudaErrorInvalidValue);
-  return occupancy(kernel_of<T>(nd_of(d)), threads_of(strips_of(lq)), smem);
+  return occupancy(kernel_of<T>(d), threads_of(strips_of(lq)), smem);
 }
 
 template <typename T>
 int run(const void* q, const void* k, const void* v, const void* pos_bias, const void* kv_mask,
         const void* dmask, void* out, int hb, int batch, int lq, int lk, int d, int causal,
         void* stream) {
-  const size_t smem = smem_bytes(lk, d);
+  const size_t smem = smem_bytes<T>(lk, d);
   if (smem > kMaxSmem || hb <= 0 || batch <= 0 || hb % batch != 0 || lq <= 0 || lk <= 0 ||
       d <= 0 || d > kMaxD)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -602,7 +805,7 @@ int run(const void* q, const void* k, const void* v, const void* pos_bias, const
            lk % 2 == 0 && aligned(pos_bias, 8) && aligned(dmask, 8),
            d % 2 == 0 && aligned(out, 2 * sizeof(T))};
   const dim3 grid(hb, (strips_of(lq) + spb - 1) / spb);
-  return static_cast<int>(launch(kernel_of<T>(nd_of(d)), P, grid, threads_of(spb), smem,
+  return static_cast<int>(launch(kernel_of<T>(d), P, grid, threads_of(spb), smem,
                                  static_cast<cudaStream_t>(stream)));
 }
 
@@ -610,8 +813,9 @@ int run(const void* q, const void* k, const void* v, const void* pos_bias, const
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs for (lk, d), at either I/O type.
-size_t t5_attention_fwd_smem_bytes(int lk, int d) { return smem_bytes(lk, d); }
+// Bytes of dynamic shared memory one block of the f32 (bf16) kernel needs for (lk, d).
+size_t t5_attention_fwd_smem_bytes(int lk, int d) { return smem_bytes<float>(lk, d); }
+size_t t5_attention_fwd_bf16_smem_bytes(int lk, int d) { return smem_bytes<bf16>(lk, d); }
 
 // Blocks of the f32 (bf16) forward kernel resident on one SM at (lq, lk, d)
 // when each block takes a whole flat row, from
@@ -621,6 +825,19 @@ int t5_attention_fwd_blocks_per_sm(int lq, int lk, int d) {
 }
 int t5_attention_fwd_bf16_blocks_per_sm(int lq, int lk, int d) {
   return blocks_per_sm<bf16>(lq, lk, d);
+}
+
+// Registers per thread and bytes of local memory per thread (spills and
+// stack; 0 if nothing spills) of the bf16 forward kernel at width d, as the
+// loaded build has them (cudaFuncGetAttributes); returns the CUDA error.
+int t5_attention_fwd_bf16_registers(int d, int* registers, int* local_bytes) {
+  if (d <= 0 || d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes a{};
+  const cudaError_t e =
+      cudaFuncGetAttributes(&a, reinterpret_cast<const void*>(kernel_of<bf16>(d)));
+  *registers = a.numRegs;
+  *local_bytes = static_cast<int>(a.localSizeBytes);
+  return static_cast<int>(e);
 }
 
 const char* t5_attention_fwd_error_string(int err) {

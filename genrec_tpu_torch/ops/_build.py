@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``genrec_tpu_torch/_build/`` (listed in ``.gitignore``), named after a
-hash of the source so a changed source is never served a stale library,
+hash of the source and the headers beside it, so a changed source is never
+served a stale library,
 and loaded with ``ctypes``. ``build_all`` starts one ``nvcc`` per source,
 all together. Nothing here runs when a module is imported:
 the CPU tests import every module on a machine with no ``nvcc``.
@@ -45,10 +46,16 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """The library of ``csrc/<name>.cu``, named after a hash of the source,
+    every header in ``csrc/`` (a source may include any of them) and the
+    flags."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in (f"{name}.cu", *headers):
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build_all(names: Sequence[str]) -> Dict[str, str]:

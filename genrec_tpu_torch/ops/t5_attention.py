@@ -25,9 +25,9 @@ q, k, v (and the output gradient) share one dtype, f32 or bf16, as the
 reference's kernels take them: ``out``, dq, dk and dv come back in that dtype,
 dbias in f32. ``pos_bias`` is cast to f32 as the reference casts it; the
 dropout mask is f32 at either dtype. A bf16 CUDA tensor goes to the kernels'
-bf16 entry points (q, k, v converted to f32 as they are loaded, the
-probabilities rounded to bf16 before P·V as the reference rounds them to v's
-dtype) or raises. The kernels take D ≤ 128. ``launches``, ``bwd_launches``
+bf16 entry points (q, k, v and the output gradient staged as bf16, the
+products on bf16 tensor cores with f32 sums, the probabilities rounded to
+bf16 before P·V as the reference rounds them to v's dtype) or raises. The kernels take D ≤ 128. ``launches``, ``bwd_launches``
 (f32), ``bf16_launches``, ``bf16_bwd_launches`` (bf16) and
 ``dbias_reduce_launches`` (either) count kernel launches, so a run can show
 that its main path went through the kernels.
@@ -73,11 +73,14 @@ def load_kernel():
         for fn in (lib.t5_attention_fwd, lib.t5_attention_fwd_bf16):
             fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
             fn.restype = ctypes.c_int
-        lib.t5_attention_fwd_smem_bytes.argtypes = [i, i]
-        lib.t5_attention_fwd_smem_bytes.restype = ctypes.c_size_t
+        for fn in (lib.t5_attention_fwd_smem_bytes, lib.t5_attention_fwd_bf16_smem_bytes):
+            fn.argtypes = [i, i]
+            fn.restype = ctypes.c_size_t
         for fn in (lib.t5_attention_fwd_blocks_per_sm, lib.t5_attention_fwd_bf16_blocks_per_sm):
             fn.argtypes = [i, i, i]
             fn.restype = ctypes.c_int
+        lib.t5_attention_fwd_bf16_registers.argtypes = [i, p, p]
+        lib.t5_attention_fwd_bf16_registers.restype = ctypes.c_int
         lib.t5_attention_fwd_error_string.argtypes = [i]
         lib.t5_attention_fwd_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -95,11 +98,14 @@ def load_bwd_kernel():
             fn.restype = ctypes.c_int
         lib.t5_attention_dbias_reduce.argtypes = [p, p, i, i, i, p]
         lib.t5_attention_dbias_reduce.restype = ctypes.c_int
-        lib.t5_attention_bwd_smem_bytes.argtypes = [i, i, i]
-        lib.t5_attention_bwd_smem_bytes.restype = ctypes.c_size_t
+        for fn in (lib.t5_attention_bwd_smem_bytes, lib.t5_attention_bwd_bf16_smem_bytes):
+            fn.argtypes = [i, i, i]
+            fn.restype = ctypes.c_size_t
         for fn in (lib.t5_attention_bwd_blocks_per_sm, lib.t5_attention_bwd_bf16_blocks_per_sm):
             fn.argtypes = [i, i, i]
             fn.restype = ctypes.c_int
+        lib.t5_attention_bwd_bf16_registers.argtypes = [i, p, p]
+        lib.t5_attention_bwd_bf16_registers.restype = ctypes.c_int
         lib.t5_attention_bwd_error_string.argtypes = [i]
         lib.t5_attention_bwd_error_string.restype = ctypes.c_char_p
         _bwd_lib = lib
@@ -121,7 +127,13 @@ def fwd_occupancy(lq: int, lk: int, d: int, dtype=torch.float32):
     if n < 0:
         msg = lib.t5_attention_fwd_error_string(-n).decode()
         raise RuntimeError(f"t5_attention_fwd occupancy query failed: {msg} ({-n})")
-    return lib.t5_attention_fwd_smem_bytes(lk, d), n
+    return _fwd_smem(lib, dtype)(lk, d), n
+
+
+def _fwd_smem(lib, dtype):
+    """The forward library's shared-memory size function for ``dtype`` I/O."""
+    return lib.t5_attention_fwd_bf16_smem_bytes if _bf16(dtype) else \
+        lib.t5_attention_fwd_smem_bytes
 
 
 def bwd_occupancy(lq: int, lk: int, d: int, dtype=torch.float32):
@@ -135,7 +147,29 @@ def bwd_occupancy(lq: int, lk: int, d: int, dtype=torch.float32):
     if n < 0:
         msg = lib.t5_attention_bwd_error_string(-n).decode()
         raise RuntimeError(f"t5_attention_bwd occupancy query failed: {msg} ({-n})")
-    return lib.t5_attention_bwd_smem_bytes(lq, lk, d), n
+    return _bwd_smem(lib, dtype)(lq, lk, d), n
+
+
+def _bwd_smem(lib, dtype):
+    """The backward library's shared-memory size function for ``dtype`` I/O."""
+    return lib.t5_attention_bwd_bf16_smem_bytes if _bf16(dtype) else \
+        lib.t5_attention_bwd_smem_bytes
+
+
+def bf16_kernel_attributes(d: int):
+    """{"fwd": {...}, "bwd": {...}} of the bf16 entries' kernels at width
+    ``d``: ``registers`` per thread and ``local_bytes`` per thread (spills and
+    stack, cudaFuncGetAttributes), as the loaded builds have them."""
+    out = {}
+    for kind, lib in (("fwd", load_kernel()), ("bwd", load_bwd_kernel())):
+        regs, local = ctypes.c_int(), ctypes.c_int()
+        err = getattr(lib, f"t5_attention_{kind}_bf16_registers")(
+            d, ctypes.byref(regs), ctypes.byref(local))
+        if err:
+            msg = getattr(lib, f"t5_attention_{kind}_error_string")(err).decode()
+            raise RuntimeError(f"t5_attention_{kind}_bf16 attribute query failed: {msg} ({err})")
+        out[kind] = dict(registers=regs.value, local_bytes=local.value)
+    return out
 
 
 def make_dropout_mask(generator: torch.Generator, hb: int, lq: int, lk: int, rate: float,
@@ -326,7 +360,7 @@ def _launch(qf, kf, vf, h, pos_bias, kv_mask, dmask, causal):
     if d > _MAX_D:
         raise ValueError(f"t5_attention_fwd: D={d} is above the kernel's {_MAX_D}")
     lib = load_kernel()
-    smem = lib.t5_attention_fwd_smem_bytes(lk, d)
+    smem = _fwd_smem(lib, qf.dtype)(lk, d)
     if smem > _MAX_SMEM:
         raise ValueError(f"t5_attention_fwd: Lk={lk}, D={d} needs {smem} bytes of "
                          f"shared memory per block, above the card's {_MAX_SMEM}")
@@ -370,7 +404,7 @@ def _launch_bwd(qf, kf, vf, h, pos_bias, kv_mask, dmask, do, causal, need_dbias)
     if d > _MAX_D:
         raise ValueError(f"t5_attention_bwd: D={d} is above the kernel's {_MAX_D}")
     lib = load_bwd_kernel()
-    smem = lib.t5_attention_bwd_smem_bytes(lq, lk, d)
+    smem = _bwd_smem(lib, qf.dtype)(lq, lk, d)
     if smem > _MAX_SMEM:
         raise ValueError(f"t5_attention_bwd: Lq={lq}, Lk={lk}, D={d} needs {smem} bytes of "
                          f"shared memory per block, above the card's {_MAX_SMEM}")
