@@ -61,8 +61,16 @@ which asserts; any failure exits non-zero and prints no result:
    against the CPU's, one step against an f64 CPU step with the card's codes;
    TIGER-prefix (``TIGERPrefixConfig()``) trains 3 epochs at batch 256 on a
    4096-user corpus tokenized with those codes and three prof-vector draws,
-   ``evaluate`` with the level constraint and 20 beams; one profiled step and
-   a B=16 step against an f64 CPU step;
+   streamed through the Trainer's batch factories (pinned asynchronous
+   uploads), ``evaluate`` with the level constraint and 20 beams; one
+   profiled streamed step (the put and the step), ``[stream]``'s bytes a
+   step, the copy's device ms on the copy stream and its overlap with
+   kernels; ``[tiger-prefix resident]`` trains the same config, data and
+   seed on device-resident arrays, twice: within 1e-4 (rel) of the streamed
+   per-epoch losses, printed beside the two resident runs' spread (the
+   embedding backward's atomics); both routes again under
+   ``torch.use_deterministic_algorithms``: bit-equal losses; a profiled
+   step; a B=16 step against an f64 CPU step;
 9. drive DenseT5 at ``DenseT5Config()`` widths (6 layers, d_model 512, 4
    heads of 16, dropout 0.3) on the TIGER corpus with
    ``make_item_embs(700, 768)`` and ``make_user_embs(4096, 768)``: a B=16
@@ -3379,18 +3387,110 @@ def prefix_corpus(codes):
     return tr, te
 
 
+def copy_overlap(prof):
+    """Device microseconds of the host-to-device copies in a trace, and of
+    those the microseconds during which a kernel ran beside them."""
+    copies, kernels = [], []
+    for e in device_events(prof):
+        span = (e.time_range.start, e.time_range.end)
+        if "HtoD" in e.name:
+            copies.append(span)
+        elif not e.name.startswith(("Memcpy", "Memset")):
+            kernels.append(span)
+    merged = []
+    for a, b in sorted(kernels):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    overlap = sum(max(0, min(b, d) - max(a, c)) for a, b in copies for c, d in merged)
+    return sum(b - a for a, b in copies), overlap
+
+
+def stream_copy_ms(trainer, batch, reps: int = 10) -> float:
+    """Device ms of one batch's uploads (CUDA events on the trainer's copy
+    stream, median of ``reps``). A sleep holds the copy stream while the host
+    fills the pinned buffers, so the events bracket the copies alone."""
+    trainer._put(batch)  # makes the staging buffers and the copy stream
+    stream = trainer._uploads.stream
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(stream):
+            torch.cuda._sleep(100_000_000)
+        start.record(stream)
+        trainer._put(batch)
+        end.record(stream)
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def loss_distance(a, b):
+    """The largest relative distance of two fits' per-epoch train and
+    validation losses, and whether they are bit-equal."""
+    got, want = (np.array(r.train_losses + r.val_losses) for r in (a, b))
+    return float(np.max(np.abs(got - want) / np.abs(want))), bool(np.array_equal(got, want))
+
+
+def deterministic_pair(cfg, tr, te, tmp):
+    """TIGER-prefix trained streamed (``tpp.train``) and on device-resident
+    arrays, both under ``torch.use_deterministic_algorithms(True)``: the two
+    fits' results. Kernels #1 and #2 are deterministic already; the mode
+    swaps PyTorch's atomic accumulations (the embedding backward's) for
+    ordered ones, so the routes' losses can be bit-equal."""
+    import dataclasses
+    import warnings
+
+    from genrec_tpu_torch.pipelines import tiger_prefix_pipeline as tpp
+    from genrec_tpu_torch.train.trainer import Trainer
+
+    results = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            # one compute stream: cuBLAS sums alike without CUBLAS_WORKSPACE_CONFIG
+            warnings.filterwarnings("ignore", message=".*CUBLAS_WORKSPACE_CONFIG.*")
+            for route in ("streamed", "resident"):
+                c = dataclasses.replace(cfg, trainer=dataclasses.replace(
+                    cfg.trainer, ckpt_dir=os.path.join(tmp, f"prefix_det_{route}")))
+                if route == "streamed":
+                    res = tpp.train(c, tr, te, device="cuda").result
+                else:
+                    res = Trainer(c.trainer, model=tpp.build_model(c), loss_fn=tpp.loss_fn,
+                                  train_data=tr, val_data=te, device="cuda").fit()
+                results.append(res)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return results
+
+
+def _steady_ms_step(res, steps_per_epoch):
+    """Host ms per train step over the epochs after the first."""
+    ph = res.phase_seconds
+    return (ph["train"] - ph["first_epoch"]) / ((res.epochs_run - 1) * steps_per_epoch) * 1e3
+
+
 def phase_tiger_prefix(tmp, tr, te):
     """The TIGER-prefix path at ``TIGERPrefixConfig()`` widths (d_model 128,
     2 + 4 layers, 8 heads of 16, d_ff 256, bert_dim 768, 5 vectors a level,
     80 history tokens, dropout 0.1) on ``[rqvae]``'s codes: ``train`` for
-    ``TRAIN_EPOCHS`` epochs at batch 256 on device-resident data, then
-    ``evaluate`` with the level constraint and 20 beams. Kernel launch counts
-    are set to 0 just before and read just after. Then one profiled train
-    step and one B=16 step against an f64 CPU step."""
+    ``TRAIN_EPOCHS`` epochs at batch 256, streamed through the Trainer's
+    batch factories as the reference trains it, then ``evaluate`` with the
+    level constraint and 20 beams. Kernel launch counts are set to 0 just
+    before and read just after. Then one profiled streamed step (the put of
+    its batch and the step), ``[stream]``'s copy measurements, the same run
+    on device-resident arrays, twice (``[tiger-prefix resident]``), both
+    routes again under deterministic algorithms, whose per-epoch losses must
+    be bit-equal, a profiled resident step, and one B=16 step against an f64
+    CPU step."""
     import dataclasses
+    import itertools
 
     from genrec_tpu_torch.configs import TIGERPrefixConfig
-    from genrec_tpu_torch.data.datasets import num_batches
+    from genrec_tpu_torch.data.datasets import iterate_batches, num_batches
     from genrec_tpu_torch.models.tiger_prefix import TIGERPrefix
     from genrec_tpu_torch.ops import t5_attention as ta
     from genrec_tpu_torch.pipelines import tiger_prefix_pipeline as tpp
@@ -3438,34 +3538,101 @@ def phase_tiger_prefix(tmp, tr, te):
     assert fwd == want_fwd and bwd == 10 * steps and reduce == 6 * steps, (fwd, bwd, reduce)
 
     ph = res.phase_seconds
-    steady_steps = (res.epochs_run - 1) * steps_per_epoch
-    ms_step = (ph["train"] - ph["first_epoch"]) / steady_steps * 1e3
-    print(f"[tiger-prefix] B={BATCH}, {steps_per_epoch} steps/epoch: "
+    ms_step = _steady_ms_step(res, steps_per_epoch)
+    print(f"[tiger-prefix] B={BATCH}, {steps_per_epoch} steps/epoch, streamed: "
           f"{res.steady_examples_per_sec:.1f} train examples/s and {ms_step:.2f} ms/step over "
           f"epochs 2-{res.epochs_run} (host clock); first "
           f"epoch {ph['first_epoch']:.2f} s, val {ph['val']:.2f} s, ckpt {ph['ckpt']:.2f} s")
 
-    # one step, profiled, on a fresh trainer (outside the counted main path)
+    # one streamed step, profiled: the put of its batch (the factory's gather on the
+    # host, the pinned staging, the copy) and the step, on a fresh streaming trainer
     trainer = Trainer(cfg.trainer, model=tpp.build_model(cfg), loss_fn=tpp.loss_fn,
-                      train_data=tr, device="cuda")
+                      steps_per_epoch=steps_per_epoch, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    batch = trainer.gather(trainer.train_data, torch.arange(BATCH, device="cuda"))
-    prof = profile_window(f"one TIGER-prefix train step (B={BATCH}, Lenc=83, "
-                          f"Lt={tr['labels'].shape[1]}, dropout 0.1)",
-                          lambda: trainer.train_step(batch, gen), top_n=12)
+    batches = itertools.chain.from_iterable(
+        iterate_batches(tr, BATCH, shuffle=True, seed=e) for e in itertools.count())
+    copies = {}
+    prof = profile_window(f"one streamed TIGER-prefix train step, put and step (B={BATCH}, "
+                          f"Lenc=83, Lt={tr['labels'].shape[1]}, dropout 0.1)",
+                          lambda: trainer.train_step(trainer._put(next(batches)), gen),
+                          top_n=12, on_trace=lambda p: copies.update(zip(("us", "overlap_us"),
+                                                                         copy_overlap(p))))
+    copy_us = copies.get("us", 0.0) / 3
+    overlap_us = copies.get("overlap_us", 0.0) / 3
     busy = None
-    if prof is not None:
-        busy = prof[0] / 1e3 / ms_step
-        print(f"[tiger-prefix] device busy {prof[0] / 1e3:.3f} ms per step against {ms_step:.2f} "
-              f"ms per step on the host clock without the profiler: {100 * busy:.1f}% busy")
+    if prof is not None:  # a copy beside a kernel counts once
+        busy = (prof[0] - overlap_us) / 1e3 / ms_step
+        print(f"[tiger-prefix] streamed: device busy {(prof[0] - overlap_us) / 1e3:.3f} ms per "
+              f"step (kernels and copies) against {ms_step:.2f} ms per step on the host clock "
+              f"without the profiler: {100 * busy:.1f}% busy")
+    batch = next(batches)
+    nbytes = sum(np.asarray(v).nbytes for v in batch.values())
+    copy_ms = stream_copy_ms(trainer, batch)
+    print(f"[stream] {nbytes} bytes put a step ({len(batch)} arrays: "
+          + ", ".join(f"{k} {tuple(np.shape(v))} {np.asarray(v).dtype}" for k, v in batch.items())
+          + f"); copy {copy_ms:.4f} ms device a batch (CUDA events on the copy stream, median "
+          f"of 10; {nbytes / copy_ms / 1e6:.2f} GB/s); in the profiled window the HtoD copies "
+          f"took {copy_us:.1f} us a step, {overlap_us:.1f} us of it beside kernels "
+          f"({100 * overlap_us / max(copy_us, 1e-9):.1f}%)")
+
+    # the same config, data and seed on device-resident arrays, twice
+    def resident_run(name):
+        trainer = Trainer(dataclasses.replace(cfg.trainer, ckpt_dir=os.path.join(tmp, name)),
+                          model=tpp.build_model(cfg), loss_fn=tpp.loss_fn, train_data=tr,
+                          val_data=te, device="cuda")
+        return trainer, trainer.fit()
+
+    # The shared token embedding's CUDA backward accumulates with atomics by
+    # default (compute_grad_weight_atomic_accumulate), so one route differs from
+    # itself run to run: two resident runs of these 48 steps have differed by
+    # 1.293e-5 (rel) on an H100, above the 1e-5 the routes are held to. So the
+    # routes are held to it, bit for bit, under PyTorch's deterministic kernels,
+    # where a batch read before its copy ended, or overwritten, shows; the
+    # default-mode pair is printed beside one route's spread and held only
+    # against gross errors (1e-4).
+    resident, rres = resident_run("prefix_resident_ckpt")
+    rel, equal = loss_distance(res, rres)
+    print(f"[tiger-prefix resident] losses by epoch (train): "
+          f"{[round(x, 5) for x in rres.train_losses]}; val: "
+          f"{[round(x, 5) for x in rres.val_losses]}; largest relative distance from the "
+          f"streamed route {rel:.3e} (gross-error bound 1e-4), bit-equal {equal}")
+    assert rres.epochs_run == res.epochs_run and rres.steps_run == steps, rres.steps_run
+    assert rel <= 1e-4, (res.train_losses, res.val_losses, rres.train_losses, rres.val_losses)
+    spread, same = loss_distance(resident_run("prefix_resident_ckpt2")[1], rres)
+    print(f"[tiger-prefix resident] a second resident run against the first: largest relative "
+          f"distance {spread:.3e}, bit-equal {same} (the run-to-run spread of one route)")
+    det_rel, det_equal = loss_distance(*deterministic_pair(cfg, tr, te, tmp))
+    print(f"[tiger-prefix resident] under torch.use_deterministic_algorithms(True), the "
+          f"streamed route (tpp.train) against the resident route: largest relative distance "
+          f"{det_rel:.3e} (bound 1e-5), bit-equal {det_equal}")
+    assert det_rel <= 1e-5 and det_equal, "deterministic streamed and resident losses differ"
+    ms_resident = _steady_ms_step(rres, steps_per_epoch)
+    print(f"[tiger-prefix resident] {rres.steady_examples_per_sec:.1f} train examples/s and "
+          f"{ms_resident:.2f} ms/step over epochs 2-{rres.epochs_run} (host clock); the streamed "
+          f"route {ms_step:.2f} ms/step, {100 * (ms_step / ms_resident - 1):+.1f}%")
+    batch = resident.gather(resident.train_data, torch.arange(BATCH, device="cuda"))
+    rprof = profile_window(f"one resident TIGER-prefix train step (B={BATCH}, Lenc=83, "
+                           f"Lt={tr['labels'].shape[1]}, dropout 0.1)",
+                           lambda: resident.train_step(batch, gen), top_n=12)
+    resident_busy = None
+    if rprof is not None:
+        resident_busy = rprof[0] / 1e3 / ms_resident
+        print(f"[tiger-prefix resident] device busy {rprof[0] / 1e3:.3f} ms per step against "
+              f"{ms_resident:.2f} ms per step on the host clock: {100 * resident_busy:.1f}% busy")
 
     cfg0 = dataclasses.replace(base, arch=dataclasses.replace(base.arch, dropout_rate=0.0))
     t5_step_parity("tiger-prefix-step",
                    TIGERPrefix(cfg0, generator=torch.Generator().manual_seed(1)).train(),
                    tr, tpp.loss_fn)
     return dict(fwd=fwd, bwd=bwd, reduce=reduce, examples_s=res.steady_examples_per_sec,
-                ms_step=ms_step, busy=busy, device_ms=None if prof is None else prof[0] / 1e3,
-                metrics=metrics)
+                ms_step=ms_step, busy=busy,
+                device_ms=None if prof is None else (prof[0] - overlap_us) / 1e3,
+                metrics=metrics, resident_ms_step=ms_resident,
+                resident_examples_s=rres.steady_examples_per_sec, resident_busy=resident_busy,
+                resident_device_ms=None if rprof is None else rprof[0] / 1e3,
+                loss_rel=rel, resident_spread=spread, det_rel=det_rel, stream_bytes=nbytes,
+                copy_ms=copy_ms,
+                copy_us=copy_us, overlap_us=overlap_us)
 
 
 def dense_corpus():
@@ -4238,11 +4405,12 @@ def phase_remat(tr):
                     bit_equal=v["bit_equal"], grad_err=v["grad_err"]) for k, v in out.items()}
 
 
-def profile_window(label, work, reps: int = 3, top_n: int = 6):
+def profile_window(label, work, reps: int = 3, top_n: int = 6, on_trace=None):
     """Device busy time against host wall time over ``reps`` calls of
     ``work`` (torch.profiler, after one warm-up), and the ``top_n`` device
     operations that take it. Returns the busy and wall microseconds per call,
-    or None when the profiler recorded no device time."""
+    or None when the profiler recorded no device time. ``on_trace(prof)``,
+    when given, reads the trace first."""
     from torch.profiler import ProfilerActivity, profile
 
     work()
@@ -4253,6 +4421,8 @@ def profile_window(label, work, reps: int = 3, top_n: int = 6):
             work()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    if on_trace is not None:
+        on_trace(prof)
     by_name, n_kernels = {}, 0
     for e in device_events(prof):
         n_kernels += 1
@@ -4583,9 +4753,16 @@ def main() -> int:
           f"{rqvae['ms_step']:.2f} ms/train step at B=64, busy share {rqvae['busy']}, infer "
           f"{rqvae['infer_s']:.2f} s, "
           f"{rqvae['rounds']} repair rounds, collision rate before the 4th digit "
-          f"{rqvae['rate']:.4f}; TIGER-prefix: {prefix['examples_s']:.1f} train examples/s, "
-          f"{prefix['ms_step']:.2f} ms/train step, device {prefix['device_ms']} ms/step, busy "
-          f"share {prefix['busy']}, Recall@10 {prefix['metrics']['Recall@10']:.4f}; DenseT5: "
+          f"{rqvae['rate']:.4f}; TIGER-prefix streamed: {prefix['examples_s']:.1f} train "
+          f"examples/s, {prefix['ms_step']:.2f} ms/train step, device {prefix['device_ms']} "
+          f"ms/step (put and step), busy share {prefix['busy']}, Recall@10 "
+          f"{prefix['metrics']['Recall@10']:.4f}, {prefix['stream_bytes']} bytes a step, copy "
+          f"{prefix['copy_ms']:.4f} ms, {prefix['overlap_us']:.1f} of {prefix['copy_us']:.1f} us "
+          f"beside kernels; resident: {prefix['resident_examples_s']:.1f} train examples/s, "
+          f"{prefix['resident_ms_step']:.2f} ms/train step, device {prefix['resident_device_ms']} "
+          f"ms/step, busy share {prefix['resident_busy']}, losses within "
+          f"{prefix['loss_rel']:.3e} (two resident runs {prefix['resident_spread']:.3e}; under "
+          f"deterministic algorithms {prefix['det_rel']:.3e}); DenseT5: "
           f"{dense['examples_s']:.1f} train examples/s, {dense['ms_step']:.2f} ms/train step, "
           f"device {dense['device_ms']} ms/step, busy share {dense['busy']}, "
           f"{dense['req_s']:.2f} requests/s, Recall@10 {dense['metrics']['Recall@10']:.4f}; "

@@ -318,3 +318,8 @@ def long_context_sasrec_config(max_len: int = 2048, dim: int = 64) -> SASRecLarg
         dropout=0.2, num_neg_samples=64, context_parallel_axis="ctx",
         embedding=ShardedEmbeddingConfig(vocab_size=65536, dim=dim),
         trainer=TrainerConfig(batch_size=32, lr=1e-3))
+
+
+def replace(cfg, **kw):
+    """Functional config override: `replace(SASRecConfig(), d=64)`."""
+    return dataclasses.replace(cfg, **kw)

@@ -3,18 +3,20 @@
 Counterpart of ``genrec_tpu/pipelines/tiger_prefix_pipeline.py`` (train
 `RQVAE-T5-prefix/train.py:87-187`, eval `RQVAE-T5-prefix/evaluate.py:12-95`):
 TIGER plus per-sample joins of the three prof_lvl{1,2,3}.h5 embedding sets,
-threaded through training and generation. Training runs the port's
-``Trainer`` on device-resident arrays, the three (N, 5, bert_dim) prof
-arrays included: its shuffled index matrix (seed ``cfg.trainer.seed +
-epoch``) and row-0 padding give the batches of the reference's
-``iterate_batches`` factories, in the same order. Every entry point runs
-on the card unless it is given ``device="cpu"``.
+threaded through training and generation. Training streams, as the
+reference's does: the port's ``Trainer`` takes ``iterate_batches``
+factories (train shuffled with seed ``cfg.trainer.seed + epoch``, test in
+order), and each batch, the three (B, 5, bert_dim) prof arrays included,
+goes to the card by pinned asynchronous copies. Under data parallelism each
+rank's factories yield its ``parallel.mesh.process_rows`` slice of every
+global batch, so the ranks together see the one-rank run's batches. Every
+entry point runs on the card unless it is given ``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -28,7 +30,7 @@ from genrec_tpu_torch.models import tiger as tiger_mod
 from genrec_tpu_torch.models.tiger_prefix import TIGERPrefix, generate
 from genrec_tpu_torch.ops.beam_search import ConstraintSpec
 from genrec_tpu_torch.parallel.auto import dp_shardings
-from genrec_tpu_torch.parallel.mesh import write_once
+from genrec_tpu_torch.parallel.mesh import process_rows, write_once
 from genrec_tpu_torch.train.trainer import Trainer, TrainLoopResult
 from genrec_tpu_torch.utils.csv_results import append_results_csv
 
@@ -88,10 +90,22 @@ def train(cfg: TIGERPrefixConfig, train_data: Optional[Dict[str, np.ndarray]] = 
         train_data = _split(cfg, cfg.train_dataset_path, test=False)
     if test_data is None:
         test_data = _split(cfg, cfg.test_dataset_path, test=True)
-    trainer = Trainer(cfg.trainer, model=build_model(cfg), loss_fn=loss_fn,
-                      train_data=train_data, val_data=test_data, logger_name="tiger_prefix",
-                      device=device, mesh=mesh)
-    result = trainer.fit()
+    tcfg = cfg.trainer
+    steps = datasets.num_batches(len(train_data["input_ids"]), tcfg.batch_size)
+    trainer = Trainer(tcfg, model=build_model(cfg), loss_fn=loss_fn, steps_per_epoch=steps,
+                      logger_name="tiger_prefix", device=device, mesh=mesh)
+
+    def rows(batches: Iterator[Dict[str, np.ndarray]], batch_size: int):
+        """This rank's rows of each global batch."""
+        lo, hi = process_rows(mesh, batch_size) if mesh is not None else (0, batch_size)
+        for batch in batches:
+            yield {k: v[lo:hi] for k, v in batch.items()}
+
+    result = trainer.fit(
+        lambda epoch: rows(datasets.iterate_batches(train_data, tcfg.batch_size, shuffle=True,
+                                                    seed=tcfg.seed + epoch), tcfg.batch_size),
+        lambda epoch: rows(datasets.iterate_batches(test_data, tcfg.eval_batch_size,
+                                                    shuffle=False), tcfg.eval_batch_size))
     return TIGERPrefixArtifacts(params=result.best_params, result=result)
 
 

@@ -80,7 +80,16 @@ builds, allocator growth). The trace (``utils/profiling.trace``) spans the
 epoch's steps and the read of its loss sums; each epoch's steps lie in a
 "train epoch <n>" range.
 
-The reference's batch-factory ``fit`` is left out until a caller needs it.
+Streaming (neither ``train_data`` nor ``train_data_buckets``; the
+reference's ``:413-430``, ``:529-551`` and ``:664-672``): ``fit`` takes
+``BatchIterFactory``s and each epoch trains on ``train_batches(epoch)``,
+numpy batches that :meth:`Trainer._put` sends to the device; the schedule
+counts the caller's ``steps_per_epoch``. On the card a batch is copied into
+reused pinned buffers and sent with ``non_blocking`` copies on a side stream
+(:class:`_PinnedUploads`), as ``jax.device_put`` sends asynchronously, and
+``fit`` puts batch k + 1 after step k is enqueued, so that the copy runs
+beside step k's kernels. Under DDP each rank's factories yield its own rows
+of every global batch (``parallel.mesh.process_rows``).
 """
 
 from __future__ import annotations
@@ -88,7 +97,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -113,6 +122,9 @@ Batch = Dict[str, torch.Tensor]
 # which a loss may draw what else it samples (SASRec's negatives).
 LossFn = Callable[[nn.Module, Batch, Optional[torch.Generator]],
                   Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+# train_batches(epoch) / val_batches(epoch) of the streaming fit: numpy
+# batches, each this rank's rows of a global batch
+BatchIterFactory = Callable[[int], Iterator[Dict[str, np.ndarray]]]
 
 
 @dataclasses.dataclass
@@ -144,6 +156,53 @@ class _LossModule(nn.Module):
         return self.loss_fn(self.model, batch, generator)
 
 
+class _PinnedUploads:
+    """Host-to-device copies of numpy batches on the card, asynchronous as
+    ``jax.device_put``'s: each array is copied into a pinned staging buffer
+    kept for its (name, shape, dtype), then sent with ``non_blocking=True``
+    on a side stream. Two sets of buffers take turns, and a set is refilled
+    only after the event of its last copy has completed. The caller's stream
+    waits on the copy's event before it uses the batch, and each tensor is
+    ``record_stream``-ed on it, so that the caching allocator gives its
+    memory to no other tensor before that stream has used it."""
+
+    SLOTS = 2
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self._buffers: List[Dict[tuple, torch.Tensor]] = [{} for _ in range(self.SLOTS)]
+        self._done: List[Optional[torch.cuda.Event]] = [None] * self.SLOTS
+        self._turn = 0
+
+    def put(self, batch: Dict[str, np.ndarray]) -> Batch:
+        slot, self._turn = self._turn, (self._turn + 1) % self.SLOTS
+        if self._done[slot] is not None:
+            self._done[slot].synchronize()
+        buffers = self._buffers[slot]
+        compute = torch.cuda.current_stream(self.device)
+        out = {}
+        with torch.cuda.stream(self.stream):
+            for k, v in batch.items():
+                v = np.asarray(v)
+                key = (k, v.shape, v.dtype.str)
+                if key not in buffers:
+                    buf = torch.empty(v.shape, dtype=torch.from_numpy(np.empty(0, v.dtype)).dtype,
+                                      pin_memory=True)
+                    if not buf.is_pinned():
+                        raise RuntimeError(f"could not pin a staging buffer for {k!r}")
+                    buffers[key] = buf
+                np.copyto(buffers[key].numpy(), v)
+                out[k] = buffers[key].to(self.device, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        self._done[slot] = done
+        compute.wait_event(done)
+        for t in out.values():
+            t.record_stream(compute)
+        return out
+
+
 class Trainer:
     def __init__(self, cfg: TrainerConfig, *, model: nn.Module, loss_fn: LossFn,
                  train_data: Optional[Dict[str, np.ndarray]] = None,
@@ -154,14 +213,18 @@ class Trainer:
                  train_data_buckets: Optional[List[Dict[str, np.ndarray]]] = None,
                  composite_widths: Optional[Sequence[int]] = None,
                  row_widths: Optional[np.ndarray] = None,
-                 width_slice_keys: Tuple[str, ...] = ("labels",)):
+                 width_slice_keys: Tuple[str, ...] = ("labels",),
+                 steps_per_epoch: int = 1):
         """``train_data`` / ``val_data``: numpy arrays with one row per
         sample, uploaded to ``device`` once (the card unless ``device="cpu"``)
         and kept there as ``self.train_data`` / ``self.val_data`` (in
         sharded-dataset mode, this rank's rows only). ``train_data_buckets``
         in place of ``train_data``: one such dataset per target-length
         bucket, kept as ``self.train_buckets`` (``self.train_data`` is then
-        None). ``composite_widths`` with ``row_widths`` (one per row of
+        None). With neither, the trainer streams: ``fit`` takes batch
+        factories, and ``steps_per_epoch`` (the optimizer steps an epoch of
+        ``train_batches`` runs) feeds the schedule; the resident routes count
+        their own. ``composite_widths`` with ``row_widths`` (one per row of
         ``train_data``) trains in composite width mode, slicing
         ``width_slice_keys`` to each group's width. ``model`` is moved
         there; the trainer updates it in place. ``loss_fn`` serves training
@@ -171,8 +234,8 @@ class Trainer:
         arrays. ``param_specs`` (``param_shardings``) makes it
         tensor-parallel over the mesh's 'model' axis: every rank passes the
         same whole ``model``, which is cut to this rank's shards here."""
-        if (train_data is None) == (train_data_buckets is None):
-            raise ValueError("pass train_data or train_data_buckets, one of the two")
+        if train_data is not None and train_data_buckets is not None:
+            raise ValueError("pass train_data or train_data_buckets, not both")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device)
@@ -200,8 +263,8 @@ class Trainer:
         self.widths_run: Set[int] = set()  # composite mode: the group widths that ran
         if composite_widths is not None:
             # the reference asserts on both (trainer.py:340-343)
-            if train_data_buckets is not None:
-                raise ValueError("composite widths replace buckets: pass flat train_data")
+            if train_data is None:
+                raise ValueError("composite widths need flat train_data")
             if self._shard_data:
                 raise ValueError("composite widths and sharded datasets do not compose "
                                  "(as in the reference)")
@@ -216,7 +279,7 @@ class Trainer:
             # a bucketed epoch runs sum(ceil(n_b / B)) steps: each bucket pads its tail batch
             steps_per_epoch = sum(-(-len(next(iter(d.values()))) // cfg.batch_size)
                                   for d in train_data_buckets)
-        else:  # composite mode keeps the flat count, as the reference does
+        elif train_data is not None:  # composite mode keeps the flat count, as the reference does
             steps_per_epoch = -(-len(next(iter(train_data.values()))) // cfg.batch_size)
         self.opt = make_optimizer(self.model.parameters(), cfg, steps_per_epoch,
                                   [p for k, p in self.model.named_parameters() if k in self._cut],
@@ -226,12 +289,14 @@ class Trainer:
         self.best_val = float("inf")
         self.logger = get_logger(logger_name, cfg.log_path)
         self.store = CheckpointStore(cfg.ckpt_dir, keep=cfg.keep_checkpoints)
-        placed = [self._upload(d) for d in (train_data_buckets or [train_data])]
-        self.train_buckets = [p[0] for p in placed]
+        resident = train_data_buckets or ([train_data] if train_data is not None else [])
+        placed = [self._upload(d) for d in resident]
+        self.train_buckets = [p[0] for p in placed]  # empty: the trainer streams
         self._bucket_meta = [p[1] for p in placed]
         self.train_data = self.train_buckets[0] if train_data is not None else None
         self.val_data, self._val_meta = (self._upload(val_data) if val_data is not None
                                          else (None, None))
+        self._uploads: Optional[_PinnedUploads] = None  # made at the first put on the card
         if cfg.resume:
             self._try_resume()
         # DDP over the 'data' group; None without a process group
@@ -256,6 +321,17 @@ class Trainer:
             block[:len(part)] = part
             out[k] = torch.as_tensor(block).to(self.device)
         return out, (n_real, n_loc)
+
+    def _put(self, batch: Dict[str, np.ndarray]) -> Batch:
+        """A streamed batch (this rank's rows) on the device, each array in
+        the dtype :meth:`_upload` gives it: ``torch.as_tensor`` on the CPU,
+        pinned asynchronous copies on the card (:class:`_PinnedUploads`),
+        ready to use on the current stream."""
+        if self.device.type == "cpu":
+            return {k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()}
+        if self._uploads is None:
+            self._uploads = _PinnedUploads(self.device)
+        return self._uploads.put(batch)
 
     def snapshot_params(self) -> Dict[str, torch.Tensor]:
         """A copy of the model's state_dict that later steps leave as it is,
@@ -473,28 +549,64 @@ class Trainer:
         self.step += 1
         return aux["sum_loss"].detach(), aux["valid"]
 
+    def _epoch_batches(self, epoch: int, train_batches: Optional[BatchIterFactory]
+                       ) -> Iterator[Tuple[Batch, int]]:
+        """The epoch's batches on the device in the order they run, each with
+        the examples it holds (counted on the host: no device read). A
+        streamed batch is put when the caller asks for it, after it has
+        enqueued the step before."""
+        if not self.train_buckets:
+            if train_batches is None:
+                raise ValueError("a streaming Trainer (no train_data) needs train_batches")
+            for batch in train_batches(epoch):
+                n = (int(np.asarray(batch["valid"]).sum()) if "valid" in batch
+                     else len(next(iter(batch.values()))))
+                yield self._put(batch), n
+            return
+        for data, width, chunk, idx_chunk in self._epoch_work(epoch):
+            if self._composite is not None:
+                self.widths_run.add(width or self._full_width)
+            for row, idx in zip(chunk, idx_chunk):
+                yield self._sliced(self.gather(data, idx), width), int((row >= 0).sum())
+
     @torch.no_grad()
-    def evaluate_loss(self, generator: Optional[torch.Generator] = None) -> float:
-        """Per-valid-sample mean validation loss (SASRec/train.py:59-81 style),
-        summed on the device and read once; ``generator`` goes to the loss."""
+    def evaluate_loss(self, batches: Optional[Iterable[Dict[str, np.ndarray]]] = None,
+                      generator: Optional[torch.Generator] = None) -> float:
+        """Per-valid-sample mean validation loss (SASRec/train.py:59-81 style)
+        over ``val_data`` when the trainer holds it, else over ``batches``
+        (numpy, this rank's rows), summed on the device and read once;
+        ``generator`` goes to the loss."""
         self.model.eval()
-        _, idx_mat = self._indices(self.val_data, self._val_meta, self.cfg.eval_batch_size,
-                                   shuffle=False, seed=0)
+        if self.val_data is not None:
+            _, idx_mat = self._indices(self.val_data, self._val_meta,
+                                       self.cfg.eval_batch_size, shuffle=False, seed=0)
+            device_batches = (self.gather(self.val_data, idx) for idx in idx_mat)
+        elif batches is not None:
+            device_batches = (self._put(batch) for batch in batches)
+        else:
+            raise ValueError("evaluate_loss needs val_data or batches")
         total = torch.zeros((), device=self.device)
         valid = torch.zeros((), device=self.device)
-        for idx in idx_mat:
-            _, aux = self.eval_loss_fn(self.model, self.gather(self.val_data, idx), generator)
+        for batch in device_batches:
+            _, aux = self.eval_loss_fn(self.model, batch, generator)
             total += aux["sum_loss"]
             valid += aux["valid"]
         total, valid = all_reduce_sum(torch.stack([total, valid]), self._group).tolist()
         return total / valid if valid > 0 else 0.0
 
     # ------------------------------------------------------------------
-    def fit(self, *, epoch_end_callback: Optional[Callable[[int, "Trainer"], None]] = None
+    def fit(self, train_batches: Optional[BatchIterFactory] = None,
+            val_batches: Optional[BatchIterFactory] = None, *,
+            examples_per_epoch: Optional[int] = None,
+            epoch_end_callback: Optional[Callable[[int, "Trainer"], None]] = None
             ) -> TrainLoopResult:
         """Train to ``cfg.epochs`` (or an early stop), calling
         ``epoch_end_callback(epoch, self)`` after each epoch's latest-state
-        save."""
+        save. A streaming trainer trains each epoch on ``train_batches(epoch)``;
+        validation runs over ``val_data`` when the trainer holds it, else over
+        ``val_batches(epoch)`` when given, else the train mean stands in.
+        ``examples_per_epoch`` is accepted and read nowhere, as in the
+        reference."""
         cfg = self.cfg
         # ranks of one data row draw alike; data index 0 draws the one-device stream
         generator = torch.Generator(device=self.device).manual_seed(
@@ -522,22 +634,18 @@ class Trainer:
             t0 = time.perf_counter()
             with (trace(cfg.profile_dir) if profiling else contextlib.nullcontext()), \
                     annotate(f"train epoch {epoch}"):
-                work = self._epoch_work(epoch)
                 sum_loss = torch.zeros((), device=self.device)
                 sum_valid = torch.zeros((), device=self.device)
-                for data, width, _, idx_chunk in work:
-                    if self._composite is not None:
-                        self.widths_run.add(width or self._full_width)
-                    for idx in idx_chunk:
-                        sl, vl = self.train_step(self._sliced(self.gather(data, idx), width),
-                                                 generator)
-                        sum_loss += sl
-                        sum_valid += vl
+                n_examples = 0
+                for batch, n in self._epoch_batches(epoch, train_batches):
+                    sl, vl = self.train_step(batch, generator)
+                    sum_loss += sl
+                    sum_valid += vl
+                    n_examples += n
+                    steps_run += 1
                 # the reads synchronize: once per epoch
                 sum_loss, sum_valid = all_reduce_sum(torch.stack([sum_loss, sum_valid]),
                                                      self._group).tolist()
-            steps_run += sum(len(chunk) for _, _, chunk, _ in work)
-            n_examples = sum(int((chunk >= 0).sum()) for _, _, chunk, _ in work)
             dt = time.perf_counter() - t0
             phase["train"] += dt
             total_time += dt
@@ -553,9 +661,11 @@ class Trainer:
                 raise ValueError(f"training diverged: loss={avg_loss} at epoch {epoch}")
             train_losses.append(avg_loss)
 
-            if self.val_data is not None:
+            if self.val_data is not None or val_batches is not None:
                 tv = time.perf_counter()
-                val_loss = self.evaluate_loss(generator)
+                val_loss = self.evaluate_loss(
+                    None if self.val_data is not None else val_batches(epoch),
+                    generator=generator)
                 phase["val"] += time.perf_counter() - tv
             else:
                 val_loss = avg_loss

@@ -1,12 +1,37 @@
-"""Small utilities: a copy of ``genrec_tpu/utils/misc.py``'s ``get_logger``
-(`RQ-VAE/utils.py:6-37`)."""
+"""Small utilities: a copy of ``genrec_tpu/utils/misc.py`` but its JAX
+compilation cache (`RQ-VAE/utils.py:6-37`)."""
 
 from __future__ import annotations
 
+import datetime
 import logging
 import os
 import sys
 from typing import Optional
+
+
+def ensure_dir(path: str) -> None:
+    os.makedirs(path, exist_ok=True)
+
+
+def get_local_time() -> str:
+    return datetime.datetime.now().strftime("%b-%d-%Y_%H-%M-%S")
+
+
+_COLORS = {"black": 30, "red": 31, "green": 32, "yellow": 33, "blue": 34,
+           "pink": 35, "cyan": 36, "white": 37}
+
+
+def set_color(log: str, color: str, highlight: bool = True) -> str:
+    """ANSI-colored console strings (RQ-VAE/utils.py:10-22)."""
+    index = _COLORS.get(color, 37)
+    prev = "\033[1;" if highlight else "\033[0;"
+    return f"{prev}{index}m{log}\033[0m"
+
+
+def delete_file(path: str) -> None:
+    if os.path.exists(path):
+        os.remove(path)
 
 
 def get_logger(name: str, log_path: Optional[str] = None,

@@ -13,7 +13,11 @@ against the originals on the same inputs:
 - ``utils/visualize.py``'s distances, counts and CSVs
   (``tests/test_utils.py:15-40``); matplotlib waits for a plot;
 - ``backend/schemas.py``: every pydantic model, field for field, with no
-  pydantic import until a model is asked for.
+  pydantic import until a model is asked for;
+- ``utils/misc.py``'s ``ensure_dir``, ``get_local_time``, ``set_color`` and
+  ``delete_file`` with ``utils/__init__.py``'s re-exports, ``configs.replace``
+  and ``utils/plotting.py``'s ``plot_training_curves`` (the same PNG bytes
+  where matplotlib is installed; no matplotlib import without a path).
 """
 
 import csv
@@ -218,3 +222,76 @@ def test_schemas_cover_every_reference_model():
     reference = {k for k, v in vars(jschemas).items()
                  if isinstance(v, type) and issubclass(v, BaseModel) and v is not BaseModel}
     assert reference == set(_schema_names())
+
+
+def test_misc_copies_equal_the_reference(tmp_path):
+    import datetime
+
+    import genrec_tpu.utils as jutils
+    from genrec_tpu.utils import misc as jmisc
+    import genrec_tpu_torch.utils as utils
+    from genrec_tpu_torch.utils import misc
+
+    public = {"ensure_dir", "set_color", "get_local_time", "append_results_csv"}
+    assert public <= set(vars(utils)) and public <= set(vars(jutils))
+    for color in ("black", "red", "green", "yellow", "blue", "pink", "cyan", "white", "mauve"):
+        for highlight in (True, False):
+            assert misc.set_color("msg", color, highlight) == jmisc.set_color("msg", color,
+                                                                              highlight)
+    fmt = "%b-%d-%Y_%H-%M-%S"
+    got, want = (datetime.datetime.strptime(m.get_local_time(), fmt) for m in (misc, jmisc))
+    assert abs((got - want).total_seconds()) <= 2
+    for mod, name in ((misc, "port"), (jmisc, "jax")):
+        path = tmp_path / name / "a" / "b"
+        mod.ensure_dir(str(path))
+        mod.ensure_dir(str(path))  # exists already: no error
+        f = path / "x.txt"
+        f.write_text("x")
+        mod.delete_file(str(f))
+        mod.delete_file(str(f))  # gone already: no error
+        assert path.is_dir() and not f.exists()
+
+
+def test_configs_replace_equals_the_reference():
+    import dataclasses
+
+    from genrec_tpu import configs as jconfigs
+    from genrec_tpu_torch import configs
+
+    got = configs.replace(configs.SASRecConfig(), d=64, max_len=30)
+    want = jconfigs.replace(jconfigs.SASRecConfig(), d=64, max_len=30)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert (got.d, got.max_len) == (64, 30) and configs.SASRecConfig().d != 64
+    with pytest.raises(TypeError):
+        configs.replace(configs.SASRecConfig(), no_such_field=1)
+
+
+@pytest.mark.parametrize("metrics", [None, {"Recall@10": [0.1, 0.2, 0.3]},
+                                     {"Recall@10": [0.1, 0.2], "NDCG@10": [0.05, 0.1],
+                                      "Hit@5": [0.2, 0.4]}])
+def test_plot_training_curves_equals_the_reference(tmp_path, metrics):
+    from genrec_tpu.utils import plotting as jplotting
+    from genrec_tpu_torch.utils import plotting
+
+    losses = [1.0, 0.6, 0.4]
+    assert plotting.plot_training_curves(losses, metrics, None) is None
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:  # without matplotlib only the save_path=None return can run
+        return
+    got, want = tmp_path / "port" / "curves.png", tmp_path / "jax" / "curves.png"
+    plotting.plot_training_curves(losses, metrics, str(got))
+    jplotting.plot_training_curves(losses, metrics, str(want))
+    assert got.read_bytes() == want.read_bytes()
+
+
+def test_plots_import_matplotlib_only_for_a_path():
+    code = ("import sys\n"
+            "import genrec_tpu_torch.utils\n"
+            "from genrec_tpu_torch.utils import plotting\n"
+            "plotting.plot_training_curves([1.0, 0.5], {'Recall@10': [0.1, 0.2]}, None)\n"
+            "plotting.plot_loss_curves([1.0, 0.5], [1.1, 0.6], None)\n"
+            "assert 'matplotlib' not in sys.modules\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=str(pathlib.Path(__file__).resolve().parents[1]))
+    assert out.returncode == 0, out.stderr

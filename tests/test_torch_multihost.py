@@ -20,7 +20,8 @@ computed. At dropout 0:
 - the row-sharded SASRecLarge trained on 1 × 2 and 2 × 1 meshes equals the
   one-rank model;
 - the other four pipelines train under the same wiring, their replicas in
-  step.
+  step; TIGER-prefix streams, each rank fed its half of every batch, and
+  gives the one-rank run's losses.
 
 The rank processes import no JAX; the JAX side runs in the pytest process.
 """
@@ -172,9 +173,8 @@ def _other_pipelines(out: pathlib.Path) -> dict:
     """SASRec, RQ-VAE, DenseT5 and TIGER-prefix, 2 epochs each at 2 ranks in
     the default (sharded-dataset) mode."""
     from genrec_tpu_torch import configs
-    from genrec_tpu_torch.data import datasets, synthetic, tiger_tokens
-    from genrec_tpu_torch.pipelines import (dense_t5_pipeline, rqvae_pipeline, sasrec_pipeline,
-                                            tiger_prefix_pipeline)
+    from genrec_tpu_torch.data import synthetic
+    from genrec_tpu_torch.pipelines import dense_t5_pipeline, rqvae_pipeline, sasrec_pipeline
 
     def trainer(name, **kw):
         return configs.TrainerConfig(**dict(dict(epochs=2, batch_size=32, eval_batch_size=32,
@@ -199,19 +199,31 @@ def _other_pipelines(out: pathlib.Path) -> dict:
     arts["dense_t5"] = dense_t5_pipeline.train(configs.DenseT5Config(
         arch=configs.T5ArchConfig(**arch), input_emb_dim=32, target_emb_dim=32, max_seq_len=8,
         trainer=trainer("dense_t5")), corpus, items, users, device="cpu")
+    arts["tiger_prefix"] = _tiger_prefix_run(out / "prefix", corpus)
+    return {name: (a.result.train_losses, a.result.val_losses,
+                   float(sum(v.double().sum() for v in a.result.final_params.values())))
+            for name, a in arts.items()}
+
+
+def _tiger_prefix_run(ckpt_dir: pathlib.Path, corpus):
+    """TIGER-prefix's streamed ``train`` at dropout 0, 2 epochs at batch 32:
+    under DDP each rank feeds its ``process_rows`` slice of every batch."""
+    from genrec_tpu_torch import configs
+    from genrec_tpu_torch.data import datasets, synthetic, tiger_tokens
+    from genrec_tpu_torch.pipelines import tiger_prefix_pipeline
+
     codes = synthetic.make_codes(40, seed=1)
     tr, te = tiger_tokens.build_tiger_splits(corpus.item_id_lists, corpus.user_ids, codes)
     profs = [synthetic.make_prof_embs(corpus.num_users, 5, 16, seed=s) for s in (2, 3, 4)]
-    arts["tiger_prefix"] = tiger_prefix_pipeline.train(
+    trainer = configs.TrainerConfig(epochs=2, batch_size=32, eval_batch_size=32, lr=3e-3,
+                                    ckpt_dir=str(ckpt_dir), seed=0, early_stop_patience=10)
+    return tiger_prefix_pipeline.train(
         configs.TIGERPrefixConfig(arch=configs.T5ArchConfig(**ARCH), max_len=MAX_LEN,
-                                  bert_dim=16, trainer=trainer("prefix")),
+                                  bert_dim=16, trainer=trainer),
         tiger_prefix_pipeline.attach_prof(datasets.build_tiger_arrays(tr, MAX_LEN, 4), profs),
         tiger_prefix_pipeline.attach_prof(
             datasets.build_tiger_arrays(te, MAX_LEN, 4, max_target_items=1), profs),
         device="cpu")
-    return {name: (a.result.train_losses, a.result.val_losses,
-                   float(sum(v.double().sum() for v in a.result.final_params.values())))
-            for name, a in arts.items()}
 
 
 def _rank_main(rank: int, world: int, rdv: str, out: str) -> None:
@@ -369,3 +381,16 @@ def test_other_pipelines_train_data_parallel(ranks, name):
     a, b = (r["pipelines"][name] for r in ranks)
     assert np.isfinite(a[0] + a[1]).all() and len(a[0]) == 2
     assert a == b
+
+
+def test_tiger_prefix_two_ranks_stream_as_one_rank(ranks, tmp_path):
+    """Each rank streams its half of every batch (dropout 0): the two
+    ranks' per-epoch losses equal a one-rank run's."""
+    from genrec_tpu_torch.data import synthetic
+
+    corpus = synthetic.make_interactions(num_users=90, num_items=40, min_len=4, max_len=10,
+                                         num_topics=4, seed=3)
+    one = _tiger_prefix_run(tmp_path, corpus).result
+    train, val, _ = ranks[0]["pipelines"]["tiger_prefix"]
+    np.testing.assert_allclose(train, one.train_losses, rtol=1e-5)
+    np.testing.assert_allclose(val, one.val_losses, rtol=1e-5)

@@ -3,9 +3,10 @@ tiger_prefix_pipeline.py) against the JAX package's, on the CPU at a tiny
 size.
 
 - From the same initial weights (the reference pipeline's own init,
-  converted) at dropout 0, ``train`` on the batch-factory trainer gives
-  per-epoch train and validation losses within 1e-4 of JAX's (f32 forward,
-  backward and Adam, each summed in another order).
+  converted) at dropout 0, ``train``, streaming through the batch-factory
+  trainer as JAX's does, gives per-epoch train and validation losses within
+  1e-4 of JAX's (f32 forward, backward and Adam, each summed in another
+  order).
 - ``evaluate`` of the same parameters gives JAX's Recall/NDCG exactly (the
   same generated tokens), and writes the results CSV.
 - End to end, mirroring tests/test_pipelines.py::test_tiger_prefix_end_to_end:
