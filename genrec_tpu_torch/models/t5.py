@@ -87,6 +87,7 @@ from genrec_tpu_torch.models.layers import dropout as _dropout
 from genrec_tpu_torch.ops.attention import dot_product_attention
 from genrec_tpu_torch.ops.t5_attention import fused_t5_attention_flat, make_dropout_mask
 from genrec_tpu_torch.parallel.tensor import copy_to_model, reduce_from_model
+from genrec_tpu_torch.utils.profiling import wait_span
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
@@ -207,7 +208,9 @@ class RMSNorm(nn.Module):
 def relative_position_bucket(relative_position: torch.Tensor, *, bidirectional: bool,
                              num_buckets: int, max_distance: int) -> torch.Tensor:
     """HF T5 bucket function (memory_pos - query_pos → bucket id), with the
-    reference's f32 log and int32 truncation."""
+    reference's f32 log and int32 truncation. The log's scalar is copied to
+    the device from pageable memory, a host wait on a card: the span
+    ``t5.bucket.wait`` (``utils.profiling.wait_span``)."""
     relative_position = relative_position.to(torch.int32)
     ret = torch.zeros_like(relative_position)
     if bidirectional:
@@ -218,8 +221,9 @@ def relative_position_bucket(relative_position: torch.Tensor, *, bidirectional: 
         rel = -torch.clamp(relative_position, max=0)
     max_exact = num_buckets // 2
     is_small = rel < max_exact
-    log_ratio = torch.log(torch.tensor(max_distance / max_exact, dtype=torch.float32,
-                                       device=rel.device))
+    with wait_span("t5.bucket.wait", rel.device):
+        ratio = torch.tensor(max_distance / max_exact, dtype=torch.float32, device=rel.device)
+    log_ratio = torch.log(ratio)
     rel_if_large = max_exact + (
         torch.log(torch.clamp(rel, min=1).to(torch.float32) / max_exact)
         / log_ratio * (num_buckets - max_exact)

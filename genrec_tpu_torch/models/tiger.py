@@ -20,6 +20,7 @@ from genrec_tpu_torch.configs import TIGERConfig
 from genrec_tpu_torch.data import tiger_tokens
 from genrec_tpu_torch.models.t5 import T5EncoderDecoder
 from genrec_tpu_torch.ops.beam_search import ConstraintSpec, beam_search
+from genrec_tpu_torch.utils.profiling import span
 
 
 class TIGER(nn.Module):
@@ -77,15 +78,18 @@ def generate(model: TIGER, input_ids, attention_mask, *, num_beams: int,
              constraint: Optional[ConstraintSpec] = None):
     """Beam-search generation on the model's device: tokens
     (B, num_beams, max_gen_len) int64 including the start token, and
-    scores (B, num_beams) f32, best first."""
+    scores (B, num_beams) f32, best first. Spans
+    (``utils.profiling.span``): ``generate.encode``, the encoder and the
+    cross K/V, then beam search's (``ops.beam_search.beam_search``)."""
     cfg = model.cfg
     device = model.model.shared.weight.device
     input_ids = torch.as_tensor(input_ids, device=device)
     attention_mask = torch.as_tensor(attention_mask, device=device)
-    enc_out = model.encode(input_ids, attention_mask)
-    # cross-attention K/V projected once per SAMPLE and kept per sample:
-    # decode folds the beams into the cross-attention query axis
-    cross_kvs = model.precompute_cross_kv(enc_out)
+    with span("generate.encode"):
+        enc_out = model.encode(input_ids, attention_mask)
+        # cross-attention K/V projected once per SAMPLE and kept per sample:
+        # decode folds the beams into the cross-attention query axis
+        cross_kvs = model.precompute_cross_kv(enc_out)
 
     def decode_fn(tokens, step):
         return model.decode_step(tokens[:, :step + 1], cross_kvs, attention_mask, num_beams)

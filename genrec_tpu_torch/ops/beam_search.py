@@ -20,6 +20,8 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from genrec_tpu_torch.utils.profiling import span, wait_span
+
 _NEG_INF = -1e30
 
 
@@ -59,53 +61,63 @@ def beam_search(
     the 0-based step index to next-token logits (B*beams, V) for position
     ``step + 1``. Returns (tokens (B, beams, max_len) int64, scores
     (B, beams) f32) sorted by descending score.
+
+    Spans (``utils.profiling.span``): ``beam.search``, all of it;
+    ``beam.search.wait``, the blocking copies of two scalars to a card
+    (the frozen row's 0 and −1e30); and at each step ``beam.decode`` (the
+    ``decode_fn`` call) and ``beam.select`` (log-softmax, masks, the stable
+    sort and the gathers).
     """
-    constraint = (constraint or ConstraintSpec()).to(device)
-    B, K, V = batch_size, num_beams, vocab_size
-    steps = max_len - 1
+    with span("beam.search"):
+        constraint = (constraint or ConstraintSpec()).to(device)
+        B, K, V = batch_size, num_beams, vocab_size
+        steps = max_len - 1
 
-    tokens = torch.full((B, K, max_len), pad_token, dtype=torch.int64, device=device)
-    tokens[:, :, 0] = decoder_start
-    scores = torch.full((B, K), _NEG_INF, dtype=torch.float32, device=device)
-    scores[:, 0] = 0.0
-    finished = torch.zeros((B, K), dtype=torch.bool, device=device)
-    prefix = torch.zeros((B, K), dtype=torch.int64, device=device)  # trie walk state
-    frozen_row = torch.full((V,), _NEG_INF, dtype=torch.float32, device=device)
-    frozen_row[pad_token] = 0.0
-    neg = torch.tensor(_NEG_INF, dtype=torch.float32, device=device)
+        tokens = torch.full((B, K, max_len), pad_token, dtype=torch.int64, device=device)
+        tokens[:, :, 0] = decoder_start
+        scores = torch.full((B, K), _NEG_INF, dtype=torch.float32, device=device)
+        scores[:, 0] = 0.0
+        finished = torch.zeros((B, K), dtype=torch.bool, device=device)
+        prefix = torch.zeros((B, K), dtype=torch.int64, device=device)  # trie walk state
+        frozen_row = torch.full((V,), _NEG_INF, dtype=torch.float32, device=device)
+        with wait_span("beam.search.wait", device):  # two scalars from pageable memory
+            frozen_row[pad_token] = 0.0
+            neg = torch.tensor(_NEG_INF, dtype=torch.float32, device=device)
 
-    for step in range(steps):
-        logits = decode_fn(tokens.view(B * K, max_len), step)  # (BK, V)
-        logp = torch.log_softmax(logits.float(), dim=-1).view(B, K, V)
+        for step in range(steps):
+            with span("beam.decode"):
+                logits = decode_fn(tokens.view(B * K, max_len), step)  # (BK, V)
+            with span("beam.select"):
+                logp = torch.log_softmax(logits.float(), dim=-1).view(B, K, V)
 
-        if constraint.mode == "level":
-            logp = torch.where(constraint.level_masks[step][None, None, :], logp, neg)
-        elif constraint.mode == "trie":
-            rows = constraint.trie_offsets[step] + prefix           # (B, K)
-            logp = torch.where(constraint.trie[rows], logp, neg)    # (B, K, V)
+                if constraint.mode == "level":
+                    logp = torch.where(constraint.level_masks[step][None, None, :], logp, neg)
+                elif constraint.mode == "trie":
+                    rows = constraint.trie_offsets[step] + prefix           # (B, K)
+                    logp = torch.where(constraint.trie[rows], logp, neg)    # (B, K, V)
 
-        # frozen beams may only extend with pad at zero cost
-        logp = torch.where(finished[:, :, None], frozen_row, logp)
+                # frozen beams may only extend with pad at zero cost
+                logp = torch.where(finished[:, :, None], frozen_row, logp)
 
-        cand = (scores[:, :, None] + logp).view(B, K * V)
-        top_scores, top_idx = torch.sort(cand, dim=1, descending=True, stable=True)
-        top_scores, top_idx = top_scores[:, :K], top_idx[:, :K]
-        beam_idx = top_idx // V
-        tok_idx = top_idx % V
+                cand = (scores[:, :, None] + logp).view(B, K * V)
+                top_scores, top_idx = torch.sort(cand, dim=1, descending=True, stable=True)
+                top_scores, top_idx = top_scores[:, :K], top_idx[:, :K]
+                beam_idx = top_idx // V
+                tok_idx = top_idx % V
 
-        tokens = torch.gather(tokens, 1, beam_idx[:, :, None].expand(B, K, max_len))
-        tokens[:, :, step + 1] = tok_idx
-        finished = torch.gather(finished, 1, beam_idx)
-        prefix = torch.gather(prefix, 1, beam_idx)
-        scores = top_scores
+                tokens = torch.gather(tokens, 1, beam_idx[:, :, None].expand(B, K, max_len))
+                tokens[:, :, step + 1] = tok_idx
+                finished = torch.gather(finished, 1, beam_idx)
+                prefix = torch.gather(prefix, 1, beam_idx)
+                scores = top_scores
 
-        if eos_token is not None:
-            finished = finished | (tok_idx == eos_token)
-        if constraint.mode == "trie":
-            kc = constraint.codebook_size
-            code = torch.clamp(tok_idx - (step * kc + 1), 0, kc - 1)
-            prefix = prefix * kc + code
+                if eos_token is not None:
+                    finished = finished | (tok_idx == eos_token)
+                if constraint.mode == "trie":
+                    kc = constraint.codebook_size
+                    code = torch.clamp(tok_idx - (step * kc + 1), 0, kc - 1)
+                    prefix = prefix * kc + code
 
-    scores, order = torch.sort(scores, dim=1, descending=True, stable=True)
-    tokens = torch.gather(tokens, 1, order[:, :, None].expand(B, K, max_len))
-    return tokens, scores
+        scores, order = torch.sort(scores, dim=1, descending=True, stable=True)
+        tokens = torch.gather(tokens, 1, order[:, :, None].expand(B, K, max_len))
+        return tokens, scores

@@ -113,7 +113,7 @@ from genrec_tpu_torch.train.checkpoint import CheckpointStore
 from genrec_tpu_torch.train.optim import make_optimizer
 from genrec_tpu_torch.utils.misc import get_logger
 from genrec_tpu_torch.utils.plotting import plot_loss_curves
-from genrec_tpu_torch.utils.profiling import annotate, trace
+from genrec_tpu_torch.utils.profiling import annotate, span, trace
 
 Batch = Dict[str, torch.Tensor]
 # loss_fn(model, batch, generator) -> (loss, aux); aux holds "sum_loss" and
@@ -176,9 +176,14 @@ class _PinnedUploads:
         self._turn = 0
 
     def put(self, batch: Dict[str, np.ndarray]) -> Batch:
+        """The batch on the device, ready to use on the current stream. Spans
+        (``utils.profiling.span``): ``train.upload.wait``, the wait on the
+        slot's last copy, and ``train.upload.stage``, each array's pinned
+        fill."""
         slot, self._turn = self._turn, (self._turn + 1) % self.SLOTS
         if self._done[slot] is not None:
-            self._done[slot].synchronize()
+            with span("train.upload.wait"):
+                self._done[slot].synchronize()
         buffers = self._buffers[slot]
         compute = torch.cuda.current_stream(self.device)
         out = {}
@@ -192,7 +197,8 @@ class _PinnedUploads:
                     if not buf.is_pinned():
                         raise RuntimeError(f"could not pin a staging buffer for {k!r}")
                     buffers[key] = buf
-                np.copyto(buffers[key].numpy(), v)
+                with span("train.upload.stage"):
+                    np.copyto(buffers[key].numpy(), v)
                 out[k] = buffers[key].to(self.device, non_blocking=True)
             done = torch.cuda.Event()
             done.record(self.stream)
@@ -326,12 +332,14 @@ class Trainer:
         """A streamed batch (this rank's rows) on the device, each array in
         the dtype :meth:`_upload` gives it: ``torch.as_tensor`` on the CPU,
         pinned asynchronous copies on the card (:class:`_PinnedUploads`),
-        ready to use on the current stream."""
-        if self.device.type == "cpu":
-            return {k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()}
-        if self._uploads is None:
-            self._uploads = _PinnedUploads(self.device)
-        return self._uploads.put(batch)
+        ready to use on the current stream. All of it is the span
+        ``train.upload``."""
+        with span("train.upload"):
+            if self.device.type == "cpu":
+                return {k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()}
+            if self._uploads is None:
+                self._uploads = _PinnedUploads(self.device)
+            return self._uploads.put(batch)
 
     def snapshot_params(self) -> Dict[str, torch.Tensor]:
         """A copy of the model's state_dict that later steps leave as it is,
@@ -534,18 +542,23 @@ class Trainer:
 
     def train_step(self, batch: Batch, generator: Optional[torch.Generator]):
         """One update on ``batch`` (this rank's rows of it); returns its
-        (sum_loss, valid) on the device."""
-        self.model.train()
-        if self._ddp is None:
-            loss, aux = self.loss_fn(self.model, batch, generator)
-        else:
-            loss, aux = self._ddp(batch, generator)
-            total = all_reduce_sum(aux["valid"], self._group)
-            local = aux["valid"].detach() * self._data_axis
-            loss = loss * torch.where(total > 0, local / total, torch.zeros_like(total))
-        self.opt.zero_grad()
-        loss.backward()
-        self.opt.step()
+        (sum_loss, valid) on the device. Spans: ``train.forward``,
+        ``train.backward`` (``zero_grad``, then the backward) and
+        ``train.optimizer`` (the update)."""
+        with span("train.forward"):
+            self.model.train()
+            if self._ddp is None:
+                loss, aux = self.loss_fn(self.model, batch, generator)
+            else:
+                loss, aux = self._ddp(batch, generator)
+                total = all_reduce_sum(aux["valid"], self._group)
+                local = aux["valid"].detach() * self._data_axis
+                loss = loss * torch.where(total > 0, local / total, torch.zeros_like(total))
+        with span("train.backward"):
+            self.opt.zero_grad()
+            loss.backward()
+        with span("train.optimizer"):
+            self.opt.step()
         self.step += 1
         return aux["sum_loss"].detach(), aux["valid"]
 
@@ -554,15 +567,22 @@ class Trainer:
         """The epoch's batches on the device in the order they run, each with
         the examples it holds (counted on the host: no device read). A
         streamed batch is put when the caller asks for it, after it has
-        enqueued the step before."""
+        enqueued the step before. Spans: ``train.fetch``, the factory's next
+        batch and the count of its examples, then ``train.upload``
+        (:meth:`_put`)."""
         if not self.train_buckets:
             if train_batches is None:
                 raise ValueError("a streaming Trainer (no train_data) needs train_batches")
-            for batch in train_batches(epoch):
-                n = (int(np.asarray(batch["valid"]).sum()) if "valid" in batch
-                     else len(next(iter(batch.values()))))
+            batches = iter(train_batches(epoch))
+            while True:
+                with span("train.fetch"):
+                    batch = next(batches, None)
+                    if batch is not None:
+                        n = (int(np.asarray(batch["valid"]).sum()) if "valid" in batch
+                             else len(next(iter(batch.values()))))
+                if batch is None:
+                    return
                 yield self._put(batch), n
-            return
         for data, width, chunk, idx_chunk in self._epoch_work(epoch):
             if self._composite is not None:
                 self.widths_run.add(width or self._full_width)

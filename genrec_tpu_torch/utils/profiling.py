@@ -1,14 +1,24 @@
-"""Tracing and step timing of the port, on ``torch.profiler``.
+"""Tracing and host spans of the port, on ``torch.profiler``.
 
-Counterpart of ``genrec_tpu/utils/profiling.py``:
+Counterpart of ``genrec_tpu/utils/profiling.py`` (whose ``StepTimer`` the
+port leaves out; the spans are the port's own):
 
 - :func:`trace`: a context manager that records host and device activity
   and writes it under a directory as a Chrome-trace JSON file
   (``<host>_<pid>.<ms>.pt.trace.json``), which Perfetto and chrome://tracing
   open (the reference writes a TensorBoard trace through ``jax.profiler``);
 - :func:`annotate`: a named host range in that timeline;
-- :class:`StepTimer`: steps/s and examples/s over windows of steps, the
-  device synchronized where a window ends.
+- :func:`span`: a named host range that also adds to a registry of host
+  time by name (:func:`recorded`, :func:`reset`, :func:`open_spans`), on
+  only while a ``torch.profiler`` session records; :func:`wait_span`, one
+  around a host wait on a card, opened on a CUDA device only. The Trainer's streamed
+  route and dispatch (``train.fetch``, ``train.upload`` with
+  ``train.upload.wait`` and ``train.upload.stage``, ``train.forward``,
+  ``train.backward``, ``train.optimizer``), recommendation
+  (``generate.encode``, ``beam.search`` with ``beam.search.wait``,
+  ``beam.decode``, ``beam.select``) and the T5 stack's relative-position
+  buckets (``t5.bucket.wait``) are spans; every host wait on the device on
+  those routes is a span whose name ends in ``.wait``.
 """
 
 from __future__ import annotations
@@ -17,7 +27,7 @@ import contextlib
 import glob
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function, tensorboard_trace_handler
@@ -50,48 +60,72 @@ def annotate(name: str):
     return record_function(name)
 
 
-def _sync(value) -> None:
-    """Wait for the device work that produced ``value`` (a tensor, or a
-    dict, list or tuple of them): ``torch.cuda.synchronize`` on each card a
-    tensor lies on. A CPU tensor is ready when the call that made it returns."""
-    if isinstance(value, dict):
-        value = list(value.values())
-    if isinstance(value, (list, tuple)):
-        for v in value:
-            _sync(v)
-    elif isinstance(value, torch.Tensor) and value.device.type == "cuda":
-        torch.cuda.synchronize(value.device)
+# name -> [count, host ns, longest ns, entries with the card drained]
+_registry: Dict[str, List[int]] = {}
+_open: List[str] = []
+_OFF = contextlib.nullcontext()
+_recording = torch.autograd._profiler_enabled
 
 
-class StepTimer:
-    """Rolling per-step timing. Call ``tick(n_examples)`` after each step;
-    every ``sync_every`` steps it waits for ``sync_value`` (a device output
-    of the step), so the window measures the work and not only its launch,
-    and returns the totals since the last ``reset``."""
+class _Span:
+    __slots__ = ("name", "range", "t0")
 
-    def __init__(self, sync_every: int = 50):
-        self.sync_every = sync_every
-        self.reset()
+    def __init__(self, name: str):
+        self.name = name
 
-    def reset(self):
-        self._t0 = time.perf_counter()
-        self._steps = 0
-        self._examples = 0
-        self.history: List[Dict[str, float]] = []
+    def __enter__(self):
+        totals = _registry.setdefault(self.name, [0, 0, 0, 0])
+        if torch.cuda.is_initialized() and torch.cuda.current_stream().query():
+            totals[3] += 1
+        self.range = record_function(self.name)
+        self.range.__enter__()
+        _open.append(self.name)
+        self.t0 = time.perf_counter_ns()
 
-    def tick(self, n_examples: int, sync_value=None) -> Optional[Dict[str, float]]:
-        self._steps += 1
-        self._examples += n_examples
-        if self._steps % self.sync_every == 0:
-            if sync_value is not None:
-                _sync(sync_value)
-            dt = time.perf_counter() - self._t0
-            stats = {
-                "steps": self._steps,
-                "seconds": dt,
-                "steps_per_sec": self._steps / dt,
-                "examples_per_sec": self._examples / dt,
-            }
-            self.history.append(stats)
-            return stats
-        return None
+    def __exit__(self, *exc):
+        ns = time.perf_counter_ns() - self.t0
+        _open.pop()
+        self.range.__exit__(*exc)
+        totals = _registry.setdefault(self.name, [0, 0, 0, 0])
+        totals[0] += 1
+        totals[1] += ns
+        totals[2] = max(totals[2], ns)
+        return False
+
+
+def span(name: str):
+    """A named host span, on only while a ``torch.profiler`` session
+    records (the profiler's own enabled flag). Off, it is a shared no-op
+    context: no clock reading, no range, no allocation. On, it is a
+    ``record_function`` range of the trace, on the device events' clock and
+    nested under the caller's ranges, and it adds to ``name``'s totals in
+    the registry (:func:`recorded`): its count, host seconds, longest
+    occurrence, and on a CUDA device the entries at which the current
+    stream had finished all its work (``drained``: the card was waiting on
+    the host)."""
+    return _Span(name) if _recording() else _OFF
+
+
+def wait_span(name: str, device):
+    """:func:`span` around work that makes the host wait on ``device`` (a
+    copy from pageable memory, an event's synchronize); its name ends in
+    ``.wait``. On a CPU device the same work waits on nothing, so no span
+    opens there."""
+    return span(name) if torch.device(device).type == "cuda" else _OFF
+
+
+def recorded() -> Dict[str, Dict[str, float]]:
+    """A copy of the registry: for each span name its ``count``,
+    ``seconds``, ``max_s`` and ``drained``."""
+    return {name: {"count": c, "seconds": ns / 1e9, "max_s": top / 1e9, "drained": d}
+            for name, (c, ns, top, d) in _registry.items()}
+
+
+def reset() -> None:
+    """Clear the registry's totals."""
+    _registry.clear()
+
+
+def open_spans() -> List[str]:
+    """The names of the spans open now, outermost first (recorded spans only)."""
+    return list(_open)

@@ -1,0 +1,7 @@
+"""Trainer dispatch: host ms a step in the span train.backward (loss.backward()), traced stretch."""
+
+from h100bench import program_spans
+
+
+def read(ctx):
+    return program_spans.span_ms(ctx, program_spans.TRAIN_UNIT, "train.backward")

@@ -1,0 +1,7 @@
+"""Recommend dispatch: host ms a batch in the program's waits on the card (spans named *.wait, nested in the others), traced stretch."""
+
+from h100bench import program_spans
+
+
+def read(ctx):
+    return program_spans.wait_ms(ctx, program_spans.RECOMMEND_UNIT)
