@@ -15,10 +15,19 @@ Attention takes one of two paths:
   the per-head bias (H, Lq, Lk), with the causal mask folded into it, and
   the (B, Lk) key mask go separately to the fused kernel
   (``ops/t5_attention.py``), in its flat (H·B, L, D) layout;
-- with a KV cache (``decode_step``) the plain path: decoder self-attention
-  through ``ops/attention.dot_product_attention`` with q pre-scaled by
-  √d_kv to cancel its 1/√d, and cross-attention with the beams folded into
-  the query axis (``T5Attention._cross_attend_beams``).
+- with a KV cache (incremental decoding: ``decode_next``, and
+  ``decode_step`` over a prefix) the plain path, one new position a pass:
+  its self-attention K/V join a :class:`DecodeCache` of the earlier
+  positions' (written at the position's index, reordered by the beams'
+  parents between steps), and its query attends to them through
+  ``ops/attention.dot_product_attention`` with q pre-scaled by √d_kv to
+  cancel its 1/√d, under the relative-position bias of its one row; the
+  cross-attention reads the precomputed per-sample K/V with the beams folded
+  into the query axis (``T5Attention._cross_attend_beams``). The JAX
+  reference re-runs the decoder over the whole prefix at every step (its
+  TPU measurement found the K/V re-projection no top op); the port keeps
+  the cache, with the same mathematics: every position's K/V are the
+  projections the re-run would compute.
 
 Dropout (rate ``cfg.dropout_rate``) is on in training mode (``.train()``)
 at the reference's Flax places: the stack's input and output, every
@@ -28,8 +37,8 @@ sublayer's output, the feed-forward hidden layer, and the attention weights
 ``decode``; there is no global RNG, and training-mode dropout without a
 generator raises. In ``.eval()`` (or at rate 0) no dropout operation runs.
 Gradients reach every parameter; the attention's backward is the fused
-kernel's (``ops/t5_attention.py``). The KV-cache path (``decode_step``) is
-for generation in eval mode only.
+kernel's (``ops/t5_attention.py``). The KV-cache path (``decode_next``,
+``decode_step``) is for generation in eval mode only.
 
 ``cfg.dtype`` is the computation dtype, float32 or bfloat16, placed as the
 reference's Flax modules place it; parameters stay f32 either way. At
@@ -87,7 +96,7 @@ from genrec_tpu_torch.models.layers import dropout as _dropout
 from genrec_tpu_torch.ops.attention import dot_product_attention
 from genrec_tpu_torch.ops.t5_attention import fused_t5_attention_flat, make_dropout_mask
 from genrec_tpu_torch.parallel.tensor import copy_to_model, reduce_from_model
-from genrec_tpu_torch.utils.profiling import wait_span
+from genrec_tpu_torch.utils.profiling import count, wait_span
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
@@ -245,25 +254,26 @@ class RelativePositionBias(nn.Module):
         _normal_(self.rel_embedding, (self.cfg.d_model // self.cfg.num_heads) ** -0.5,
                  generator)
 
-    def buckets(self, qlen: int, klen: int) -> torch.Tensor:
+    def buckets(self, qlen: int, klen: int, query_start: int = 0) -> torch.Tensor:
         dev = self.rel_embedding.device
-        ctx = torch.arange(qlen, device=dev)[:, None]
+        ctx = torch.arange(query_start, query_start + qlen, device=dev)[:, None]
         mem = torch.arange(klen, device=dev)[None, :]
         return relative_position_bucket(
             mem - ctx, bidirectional=self.bidirectional,
             num_buckets=self.cfg.relative_attention_num_buckets,
             max_distance=self.cfg.relative_attention_max_distance)
 
-    def forward(self, qlen: int, klen: int, heads: Optional[Tuple[int, int]] = None
-                ) -> torch.Tensor:
-        """(1, heads, q, k); with ``heads`` = (first, count) fewer than all,
-        those heads of the whole table (a tensor-parallel rank's), whose
-        gradient is then summed over 'model'."""
+    def forward(self, qlen: int, klen: int, heads: Optional[Tuple[int, int]] = None,
+                query_start: int = 0) -> torch.Tensor:
+        """(1, heads, q, k) for queries at positions [query_start,
+        query_start + q) over keys [0, k); with ``heads`` = (first, count)
+        fewer than all, those heads of the whole table (a tensor-parallel
+        rank's), whose gradient is then summed over 'model'."""
         table = self.rel_embedding
         if heads is not None and heads[1] < self.cfg.num_heads:
             table = copy_to_model(table, self.tp_mesh)[:, heads[0]:heads[0] + heads[1]]
-        bias = table[self.buckets(qlen, klen)]  # (q, k, heads)
-        return bias.permute(2, 0, 1)[None]      # (1, heads, q, k)
+        bias = table[self.buckets(qlen, klen, query_start)]  # (q, k, heads)
+        return bias.permute(2, 0, 1)[None]                   # (1, heads, q, k)
 
 
 class T5Attention(nn.Module):
@@ -321,7 +331,16 @@ class T5Attention(nn.Module):
                 .transpose(1, 2).reshape(bm, h, s, dkv))
 
     def forward(self, x, kv, bias, *, kv_cache: Optional[KV] = None,
-                kv_beams: Optional[int] = None, generator: Optional[torch.Generator] = None):
+                kv_beams: Optional[int] = None,
+                self_cache: Optional[Tuple[torch.Tensor, int]] = None,
+                generator: Optional[torch.Generator] = None):
+        """With an :class:`AttnSpec` ``bias``, attention through kernels #1
+        and #2. Otherwise one step of incremental decoding (``x`` holds one
+        position a row): self-attention when ``self_cache`` = (this layer's
+        (2, rows, heads, positions, d_kv) K/V cache, the position), whose
+        K/V it writes there before attending to positions 0..step; else
+        cross-attention over the precomputed ``kv_cache``, the beams folded
+        into the query axis when ``kv_beams`` > 1."""
         c = self.cfg
         h, dkv = c.num_heads, c.d_kv
         inner = h * dkv
@@ -362,8 +381,14 @@ class T5Attention(nn.Module):
             raise ValueError("the KV-cache attention runs on the whole model: load the "
                              "gathered weights (parallel.tensor.gather_state) to decode")
         qh = self._split_heads(self.q(x))
-        kh, vh = kv_cache if kv_cache is not None else self.project_kv(kv)
-        if kv_cache is not None and kv_beams is not None and kv_beams > 1:
+        if self_cache is not None:
+            cache, step = self_cache
+            cache[0, :, :, step] = self.k(x).view(b, h, dkv)
+            cache[1, :, :, step] = self.v(x).view(b, h, dkv)
+            kh, vh = cache[0, :, :, :step + 1], cache[1, :, :, :step + 1]
+        else:
+            kh, vh = kv_cache
+        if kv_beams is not None and kv_beams > 1:
             out = self._cross_attend_beams(qh, kh, vh, bias, kv_beams)
         else:
             # T5 uses an unscaled dot product; dot_product_attention divides
@@ -416,11 +441,13 @@ class T5Block(nn.Module):
         self.ff = T5FeedForward(cfg)
 
     def forward(self, x, self_bias, enc_out=None, cross_mask=None,
+                generator: Optional[torch.Generator] = None, *,
                 cross_kv: Optional[KV] = None, cross_kv_beams: Optional[int] = None,
-                generator: Optional[torch.Generator] = None):
+                self_cache: Optional[Tuple[torch.Tensor, int]] = None):
         rate = _drop_rate(self, generator)
         h = self.self_norm(x)
-        x = x + _dropout(self.self_attn(h, h, self_bias, generator=generator), rate, generator)
+        x = x + _dropout(self.self_attn(h, h, self_bias, self_cache=self_cache,
+                                        generator=generator), rate, generator)
         if self.is_decoder and (enc_out is not None or cross_kv is not None):
             h = self.cross_norm(x)
             x = x + _dropout(self.cross_attn(h, enc_out, cross_mask, kv_cache=cross_kv,
@@ -455,32 +482,20 @@ class T5Stack(nn.Module):
         self.final_norm = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon)
 
     def forward(self, inputs_embeds, attention_mask=None, enc_out=None, enc_mask=None,
-                *, cross_kvs: Optional[Sequence[KV]] = None,
-                cross_kv_beams: Optional[int] = None,
-                generator: Optional[torch.Generator] = None):
+                *, generator: Optional[torch.Generator] = None):
         rate = _drop_rate(self, generator)
         lq = inputs_embeds.shape[1]
-        dev = inputs_embeds.device
-        if cross_kvs is None:
-            # (H, Lq, Lq); this rank's heads under tensor parallelism
-            pos = self.rel_bias(lq, lq, self.blocks[0].self_attn.local_heads())[0]
-            if self.is_decoder:
-                pos = pos + _causal_bias(lq, dev)  # causal folded into the bias
-            contig = lambda m: None if m is None else m.contiguous()  # noqa: E731
-            self_bias = AttnSpec(pos.contiguous(), contig(attention_mask))
-            cross_mask = AttnSpec(None, contig(enc_mask)) if enc_out is not None else None
-        else:
-            self_bias = self.rel_bias(lq, lq)
-            if self.is_decoder:
-                self_bias = self_bias + _causal_bias(lq, dev)
-            if attention_mask is not None:
-                self_bias = self_bias + _extend_mask(attention_mask)
-            cross_mask = _extend_mask(enc_mask) if enc_mask is not None else None
+        # (H, Lq, Lq); this rank's heads under tensor parallelism
+        pos = self.rel_bias(lq, lq, self.blocks[0].self_attn.local_heads())[0]
+        if self.is_decoder:
+            pos = pos + _causal_bias(lq, inputs_embeds.device)  # causal folded into the bias
+        contig = lambda m: None if m is None else m.contiguous()  # noqa: E731
+        self_bias = AttnSpec(pos.contiguous(), contig(attention_mask))
+        cross_mask = AttnSpec(None, contig(enc_mask)) if enc_out is not None else None
         x = _dropout(inputs_embeds, rate, generator)
         remat = self.cfg.remat and torch.is_grad_enabled()
-        for i, block in enumerate(self.blocks):
-            args = (x, self_bias, enc_out, cross_mask,
-                    None if cross_kvs is None else cross_kvs[i], cross_kv_beams, generator)
+        for block in self.blocks:
+            args = (x, self_bias, enc_out, cross_mask, generator)
             x = _remat(block, generator, *args) if remat else block(*args)
         return _dropout(self.final_norm(x), rate, generator)
 
@@ -488,6 +503,55 @@ class T5Stack(nn.Module):
         """Per-layer cross-attention K/V of a fixed encoder output (decoder
         stacks only), hoisted out of the generation step loop."""
         return tuple(block.cross_attn.project_kv(enc_out) for block in self.blocks)
+
+    def step(self, x, step: int, cache: "DecodeCache"):
+        """The decoder (eval mode) over one new position a row: ``x`` (rows,
+        1, d_model) at position ``step``, whose self-attention reads the
+        earlier positions' K/V from ``cache`` and writes its own there. The
+        self-attention bias is the relative-position row of query ``step``
+        over keys 0..step (one bucket computation a pass); every cached key
+        lies at or before the query, so no causal mask is needed.
+
+        Counters (``utils.profiling.count``): ``beam.decode.keys``, the
+        self-attention key positions attended, summed over the layers, and
+        ``beam.decode.cached``, how many of them the cache held."""
+        bias = self.rel_bias(1, step + 1, query_start=step)  # (1, H, 1, step + 1)
+        for i, block in enumerate(self.blocks):
+            x = block(x, bias, None, cache.cross_bias, cross_kv=cache.cross_kvs[i],
+                      cross_kv_beams=cache.num_beams, self_cache=(cache.kv[i], step))
+        cache.filled = step + 1
+        count("beam.decode.keys", len(self.blocks) * (step + 1))
+        count("beam.decode.cached", len(self.blocks) * step)
+        return self.final_norm(x)
+
+
+@dataclasses.dataclass
+class DecodeCache:
+    """The decoder's state through one incremental decoding (a ``generate``
+    call): ``kv``, the self-attention K and V of every position so far, of
+    every layer, in one (layers, 2, rows, heads, positions, d_kv) tensor in
+    the compute dtype, allocated once with a ``spare`` of the same shape
+    (position ``step`` is written at step ``step``, and only positions
+    0..step are read; ``filled`` counts the positions written); the
+    per-sample cross-attention K/V and additive key-mask bias, made once; and
+    the beams folded into the cross-attention's query axis (None: one row a
+    sample). :meth:`reorder` gathers the rows by their parents after a beam
+    search's selection, one ``index_select`` for all layers."""
+
+    kv: torch.Tensor
+    spare: torch.Tensor
+    cross_kvs: Sequence[KV]
+    cross_bias: Optional[torch.Tensor]
+    num_beams: Optional[int]
+    filled: int = 0
+
+    def reorder(self, flat_parents: torch.Tensor) -> None:
+        """Row r takes row ``flat_parents[r]``'s positions (b·K + its beam's
+        parent): the written positions only, gathered into ``spare``, which
+        then becomes ``kv``."""
+        n = self.filled
+        torch.index_select(self.kv[..., :n, :], 2, flat_parents, out=self.spare[..., :n, :])
+        self.kv, self.spare = self.spare, self.kv
 
 
 def shift_right(labels: torch.Tensor, decoder_start: int, pad_id: int) -> torch.Tensor:
@@ -551,17 +615,40 @@ class T5EncoderDecoder(nn.Module):
     def precompute_cross_kv(self, enc_out) -> Tuple[KV, ...]:
         return self.decoder.precompute_cross_kv(enc_out)
 
-    def decode_step(self, decoder_prefix_ids, cross_kvs, enc_mask=None, num_beams=None):
-        """Next-token logits (B, V) for a (B, steps_so_far) decoder prefix.
+    def start_decode(self, cross_kvs, enc_mask, num_beams: Optional[int],
+                     positions: int) -> DecodeCache:
+        """A :class:`DecodeCache` for ``positions`` decoder positions of
+        B·num_beams rows (B rows without ``num_beams``), the encoder
+        entering through the precomputed per-sample ``cross_kvs`` and
+        ``enc_mask`` (batch B)."""
+        c = self.cfg
+        k0 = cross_kvs[0][0]
+        rows = k0.shape[0] * (num_beams or 1)
+        kv = torch.empty((len(cross_kvs), 2, rows, c.num_heads, positions, c.d_kv),
+                         dtype=k0.dtype, device=k0.device)
+        bias = _extend_mask(enc_mask) if enc_mask is not None else None
+        return DecodeCache(kv, torch.empty_like(kv), cross_kvs, bias, num_beams)
 
-        Runs the stack only over the live prefix and projects logits at the
-        last position; the encoder enters through the precomputed
-        ``cross_kvs``. With ``num_beams``, ``cross_kvs``/``enc_mask`` are
-        per sample (batch B) and the prefix is (B·num_beams, s)."""
-        x = self.shared(decoder_prefix_ids)
-        x = self.decoder(x, None, None, enc_mask, cross_kvs=cross_kvs,
-                         cross_kv_beams=num_beams)
+    def decode_next(self, token_ids, step: int, cache: DecodeCache):
+        """Next-token logits (rows, V) after the tokens ``token_ids``
+        (rows,) at position ``step``: the decoder runs over that one
+        position, the earlier ones coming from ``cache``."""
+        x = self.decoder.step(self.shared(token_ids[:, None]), step, cache)
         return self.lm_logits(x[:, -1, :])
+
+    def decode_step(self, decoder_prefix_ids, cross_kvs, enc_mask=None, num_beams=None):
+        """Next-token logits (B, V) for a (B, steps_so_far) decoder prefix,
+        fed one position at a time through :meth:`decode_next`; the encoder
+        enters through the precomputed ``cross_kvs``. With ``num_beams``,
+        ``cross_kvs``/``enc_mask`` are per sample (batch B) and the prefix
+        is (B·num_beams, s). Generation runs :meth:`decode_next`; this is
+        the prefix-at-once entry that the parity tests hold against the
+        reference's ``decode_step``."""
+        s = decoder_prefix_ids.shape[1]
+        cache = self.start_decode(cross_kvs, enc_mask, num_beams, s)
+        for step in range(s):
+            logits = self.decode_next(decoder_prefix_ids[:, step], step, cache)
+        return logits
 
     def lm_logits(self, hidden):
         hidden = hidden * (self.cfg.d_model ** -0.5)

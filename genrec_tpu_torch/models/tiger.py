@@ -78,9 +78,12 @@ def generate(model: TIGER, input_ids, attention_mask, *, num_beams: int,
              constraint: Optional[ConstraintSpec] = None):
     """Beam-search generation on the model's device: tokens
     (B, num_beams, max_gen_len) int64 including the start token, and
-    scores (B, num_beams) f32, best first. Spans
-    (``utils.profiling.span``): ``generate.encode``, the encoder and the
-    cross K/V, then beam search's (``ops.beam_search.beam_search``)."""
+    scores (B, num_beams) f32, best first. The decoder runs incrementally:
+    one new position a step, the earlier positions' self-attention K/V read
+    from a :class:`~genrec_tpu_torch.models.t5.DecodeCache` that beam search
+    reorders by the beams' parents. Spans (``utils.profiling.span``):
+    ``generate.encode``, the encoder, the cross K/V and the cache, then beam
+    search's (``ops.beam_search.beam_search``)."""
     cfg = model.cfg
     device = model.model.shared.weight.device
     input_ids = torch.as_tensor(input_ids, device=device)
@@ -90,9 +93,11 @@ def generate(model: TIGER, input_ids, attention_mask, *, num_beams: int,
         # cross-attention K/V projected once per SAMPLE and kept per sample:
         # decode folds the beams into the cross-attention query axis
         cross_kvs = model.precompute_cross_kv(enc_out)
+        cache = model.model.start_decode(cross_kvs, attention_mask, num_beams,
+                                         cfg.max_gen_len - 1)
 
     def decode_fn(tokens, step):
-        return model.decode_step(tokens[:, :step + 1], cross_kvs, attention_mask, num_beams)
+        return model.model.decode_next(tokens[:, step], step, cache)
 
     return beam_search(
         decode_fn, input_ids.shape[0], num_beams, cfg.max_gen_len, cfg.arch.vocab_size,
@@ -100,5 +105,6 @@ def generate(model: TIGER, input_ids, attention_mask, *, num_beams: int,
         pad_token=cfg.arch.pad_token_id,
         eos_token=cfg.arch.eos_token_id,
         constraint=constraint,
+        reorder=cache.reorder,
         device=device,
     )

@@ -140,7 +140,8 @@ def generate(model: TIGERPrefix, input_ids, attention_mask, prof_lvl1, prof_lvl2
     """Prefix-conditioned beam generation (`RQVAE-T5-prefix/model.py:168-210`)
     on the model's device: tokens (B, num_beams, max_gen_len) int64 with the
     start token, and scores (B, num_beams) f32, best first. The extended
-    mask goes to every decode step."""
+    mask goes to every decode step; the decoder runs incrementally, one new
+    position a step, as TIGER's ``generate`` does."""
     cfg = model.cfg
     device = model.model.shared.weight.device
     t = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
@@ -148,9 +149,11 @@ def generate(model: TIGERPrefix, input_ids, attention_mask, prof_lvl1, prof_lvl2
                                                  t(prof_lvl2), t(prof_lvl3))
     # per-sample cross-attention K/V, the beams folded into the query axis
     cross_kvs = model.precompute_cross_kv(enc_out)
+    # the earlier positions' self-attention K/V, following the beams' parents
+    cache = model.model.start_decode(cross_kvs, ext_mask, num_beams, cfg.max_gen_len - 1)
 
     def decode_fn(tokens, step):
-        return model.decode_step(tokens[:, :step + 1], cross_kvs, ext_mask, num_beams)
+        return model.model.decode_next(tokens[:, step], step, cache)
 
     return beam_search(
         decode_fn, enc_out.shape[0], num_beams, cfg.max_gen_len, cfg.arch.vocab_size,
@@ -158,5 +161,6 @@ def generate(model: TIGERPrefix, input_ids, attention_mask, prof_lvl1, prof_lvl2
         pad_token=cfg.arch.pad_token_id,
         eos_token=cfg.arch.eos_token_id,
         constraint=constraint,
+        reorder=cache.reorder,
         device=device,
     )

@@ -2,7 +2,12 @@
 
 Counterpart of ``genrec_tpu/ops/beam_search.py``: beam tensors are
 (B, beams, max_len) and beams fold into the batch dimension for the decoder
-call; the decoder re-attends over the live prefix at every step. Modes:
+call. The JAX reference's decoder re-attends over the live prefix at every
+step; the port's models decode incrementally, with the same mathematics:
+``decode_fn`` runs the decoder over the one new position, its
+self-attention reading the earlier positions' K/V from a cache, and the
+optional ``reorder`` callback gathers that cache by each survivor's parent
+beam after the step's selection. Modes:
 ``none`` (unconstrained), ``level`` (each step masked to its semantic-ID
 level range) and ``trie`` (a prefix trie over the actual item codes, so
 every decoded tuple is a real item). A beam that emits eos is frozen and
@@ -53,14 +58,19 @@ def beam_search(
     pad_token: int = 0,
     eos_token: Optional[int] = None,
     constraint: Optional[ConstraintSpec] = None,
+    reorder: Optional[Callable[[torch.Tensor], None]] = None,
     device="cuda",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run beam search on ``device``.
 
     ``decode_fn(tokens, step)`` maps the (B*beams, max_len) token buffer and
     the 0-based step index to next-token logits (B*beams, V) for position
-    ``step + 1``. Returns (tokens (B, beams, max_len) int64, scores
-    (B, beams) f32) sorted by descending score.
+    ``step + 1``. ``reorder(flat_parents)``, where given, is called after
+    each step's selection that another step follows, with the (B*beams,)
+    flat row index b·beams + parent beam of each surviving beam, so that a
+    ``decode_fn`` holding per-row state (a K/V cache) can follow the beams.
+    Returns (tokens (B, beams, max_len) int64, scores (B, beams) f32)
+    sorted by descending score.
 
     Spans (``utils.profiling.span``): ``beam.search``, all of it;
     ``beam.search.wait``, the blocking copies of two scalars to a card
@@ -80,6 +90,7 @@ def beam_search(
         finished = torch.zeros((B, K), dtype=torch.bool, device=device)
         prefix = torch.zeros((B, K), dtype=torch.int64, device=device)  # trie walk state
         frozen_row = torch.full((V,), _NEG_INF, dtype=torch.float32, device=device)
+        row_base = torch.arange(0, B * K, K, device=device)[:, None] if reorder else None
         with wait_span("beam.search.wait", device):  # two scalars from pageable memory
             frozen_row[pad_token] = 0.0
             neg = torch.tensor(_NEG_INF, dtype=torch.float32, device=device)
@@ -117,6 +128,8 @@ def beam_search(
                     kc = constraint.codebook_size
                     code = torch.clamp(tok_idx - (step * kc + 1), 0, kc - 1)
                     prefix = prefix * kc + code
+                if reorder is not None and step + 1 < steps:
+                    reorder((beam_idx + row_base).view(B * K))
 
         scores, order = torch.sort(scores, dim=1, descending=True, stable=True)
         tokens = torch.gather(tokens, 1, order[:, :, None].expand(B, K, max_len))

@@ -11,14 +11,17 @@ port leaves out; the spans are the port's own):
 - :func:`span`: a named host range that also adds to a registry of host
   time by name (:func:`recorded`, :func:`reset`, :func:`open_spans`), on
   only while a ``torch.profiler`` session records; :func:`wait_span`, one
-  around a host wait on a card, opened on a CUDA device only. The Trainer's streamed
+  around a host wait on a card, opened on a CUDA device only; :func:`count`,
+  a counter in the same registry. The Trainer's streamed
   route and dispatch (``train.fetch``, ``train.upload`` with
   ``train.upload.wait`` and ``train.upload.stage``, ``train.forward``,
   ``train.backward``, ``train.optimizer``), recommendation
   (``generate.encode``, ``beam.search`` with ``beam.search.wait``,
   ``beam.decode``, ``beam.select``) and the T5 stack's relative-position
   buckets (``t5.bucket.wait``) are spans; every host wait on the device on
-  those routes is a span whose name ends in ``.wait``.
+  those routes is a span whose name ends in ``.wait``. The decoder's
+  incremental step counts the self-attention key positions it attends
+  (``beam.decode.keys``) and those its cache held (``beam.decode.cached``).
 """
 
 from __future__ import annotations
@@ -112,6 +115,14 @@ def wait_span(name: str, device):
     ``.wait``. On a CPU device the same work waits on nothing, so no span
     opens there."""
     return span(name) if torch.device(device).type == "cuda" else _OFF
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to ``name``'s count in the registry, with no host time,
+    while a ``torch.profiler`` session records (as :func:`span`); off, one
+    flag check."""
+    if _recording():
+        _registry.setdefault(name, [0, 0, 0, 0])[0] += n
 
 
 def recorded() -> Dict[str, Dict[str, float]]:

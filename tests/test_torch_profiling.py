@@ -267,5 +267,7 @@ def test_generate_records_its_spans_and_keeps_its_results(registry, mode):
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     counts = {k: v["count"] for k, v in registry.recorded().items()}
+    # the one decoder layer attends 1 + 2 + 3 + 4 key positions, 0 + 1 + 2 + 3 cached
     assert counts == {"generate.encode": 1, "beam.search": 1, "beam.decode": 4,
-                      "beam.select": 4}
+                      "beam.select": 4, "beam.decode.keys": 10, "beam.decode.cached": 6}
+    assert registry.recorded()["beam.decode.keys"]["seconds"] == 0
