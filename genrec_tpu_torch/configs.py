@@ -5,6 +5,8 @@ A copy of ``genrec_tpu.configs``' ``MeshConfig``, ``TrainerConfig``,
 ``DenseT5Config``, ``SASRecConfig``, ``ShardedEmbeddingConfig``,
 ``SASRecLargeConfig`` and ``long_context_sasrec_config``: the same fields with the same defaults, so
 that a configuration compares field for field with the reference's.
+``DeepSeekV2Config`` is the port's own: the published DeepSeek-V2-Lite
+``config.json`` field for field, and the semantic-ID recommender's fields.
 Defaults reproduce the reference configurations (`RQ-VAE/main.py:6-36`,
 `RQVAE-T5/main.py:4-35`, `RQVAE-T5/model.py:9-23`,
 `RQVAE-T5-prefix/main.py:4-43`, `T5/main.py:5-38`, `SASRec/main.py:6-42`).
@@ -306,6 +308,86 @@ class SASRecLargeConfig:
         default_factory=lambda: TrainerConfig(batch_size=4096, lr=1e-3))
     mesh: MeshConfig = dataclasses.field(
         default_factory=lambda: MeshConfig(data_axis=-1, model_axis=2))
+
+
+def _yarn_40x():
+    return {"beta_fast": 32, "beta_slow": 1, "factor": 40, "mscale": 0.707,
+            "mscale_all_dim": 0.707, "original_max_position_embeddings": 4096,
+            "type": "yarn"}
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepSeekV2Config:
+    """DeepSeek-V2 as a semantic-ID recommender (``models/deepseek_v2.py``).
+
+    The first group of fields is the published ``config.json`` of
+    DeepSeek-V2-Lite (https://huggingface.co/deepseek-ai/DeepSeek-V2-Lite),
+    key for key with its values as defaults: 27 layers at hidden 2048, the
+    first dense, the rest 64 routed experts (top-6 by softmax, greedy) and 2
+    shared; MLA without a query LoRA (16 heads, q/k 128 + rope 64, v 128,
+    latent 512); YaRN rope (factor 40 over 4,096 positions). The model is
+    inference-only, so the training keys (``aux_loss_alpha``, ``seq_aux``)
+    are kept but not read. Keys the model computes at one value only (no
+    query LoRA, greedy softmax routing, top-k weights not renormalised, an
+    untied head, SiLU, no attention bias, YaRN) are checked when it is
+    built: ``models.deepseek_v2.check_supported`` refuses any other.
+
+    The recommender's fields: each item is ``code_dim`` digits (3 levels of
+    a ``codebook_size`` codebook and a disambiguation digit); the digit d at
+    level p is token ``sid_base + p·codebook_size + d``, the last
+    ``code_dim · codebook_size`` ids of the vocabulary. ``dtype`` is the
+    weights' and the products' dtype (f32 accumulation; softmaxes, the
+    log-softmax and the router in f32).
+    """
+
+    vocab_size: int = 102400
+    hidden_size: int = 2048
+    intermediate_size: int = 10944
+    moe_intermediate_size: int = 1408
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    num_key_value_heads: int = 16
+    n_shared_experts: int = 2
+    n_routed_experts: int = 64
+    routed_scaling_factor: float = 1.0
+    kv_lora_rank: int = 512
+    q_lora_rank: Optional[int] = None
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    qk_nope_head_dim: int = 128
+    topk_method: str = "greedy"
+    n_group: int = 1
+    topk_group: int = 1
+    num_experts_per_tok: int = 6
+    moe_layer_freq: int = 1
+    first_k_dense_replace: int = 1
+    norm_topk_prob: bool = False
+    scoring_func: str = "softmax"
+    aux_loss_alpha: float = 0.001
+    seq_aux: bool = True
+    hidden_act: str = "silu"
+    max_position_embeddings: int = 163840
+    initializer_range: float = 0.02
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    rope_scaling: dict = dataclasses.field(default_factory=_yarn_40x)
+    attention_bias: bool = False
+    attention_dropout: float = 0.0
+    bos_token_id: int = 100000
+    eos_token_id: int = 100001
+    tie_word_embeddings: bool = False
+    model_type: str = "deepseek_v2"
+    # the recommender
+    codebook_size: int = 256
+    code_dim: int = 4
+    sid_base: int = 101376
+    dtype: str = "bfloat16"
+
+    @property
+    def max_gen_len(self) -> int:
+        """Tokens ``generate`` returns a beam: a start placeholder and the
+        ``code_dim`` digits (TIGER's contract)."""
+        return self.code_dim + 1
 
 
 def long_context_sasrec_config(max_len: int = 2048, dim: int = 64) -> SASRecLargeConfig:

@@ -8,7 +8,10 @@ reference, kept for parity). Leave-one-out split with teacher forcing
 (`RQVAE-T5/data_read.ipynb`): for a user item sequence s_1..s_n (n ≥ 2),
 test = (s_1..s_{n-1} → s_n) and train = (s_1..s_{n-2} → s_2..s_{n-1});
 users with exactly 2 items are train-only. Host-side numpy; the tables are
-moved to the device by the beam search.
+moved to the device by the beam search. The beam search walks the trie as
+a node table over the prefixes that exist (:func:`build_trie_nodes`); the
+dense table of every base-K prefix (:func:`build_code_trie`) is the JAX
+package's, kept for comparison.
 """
 
 from __future__ import annotations
@@ -151,3 +154,36 @@ def build_code_trie(codes: np.ndarray, vocab_size: int,
 def trie_prefix_offsets(codebook_size: int, code_dim: int) -> np.ndarray:
     """Row offsets into the flat trie table per decode step."""
     return np.cumsum([0] + [codebook_size ** p for p in range(code_dim - 1)]).astype(np.int32)
+
+
+def build_trie_nodes(codes: np.ndarray, codebook_size: int = 8) -> Tuple[np.ndarray, np.ndarray]:
+    """The prefix trie over the actual item code set as a node table over
+    the prefixes that exist: ``(children (nodes, W) int64, allowed (nodes, W)
+    bool)`` with ``W = max(codebook_size, largest digit + 1)``.
+
+    Node 0 is the empty prefix; every prefix of 1..code_dim-1 digits that
+    some item has is a node, level by level; the last node is dead: no item
+    continues it, and its children are itself. ``allowed[n, d]``: some item
+    continues node n's prefix with digit d. ``children[n, d]``: the node of
+    that prefix extended by d, the dead node where no item has it (and at
+    the last level). A walk that leaves the items' prefixes so ends in the
+    dead node, as the dense table's prefix arithmetic ends in rows with
+    nothing allowed, and every allowed mask equals the dense table's row.
+    """
+    codes = np.asarray(codes, dtype=np.int64)
+    n_items, code_dim = codes.shape
+    width = max(codebook_size, int(codes.max()) + 1 if codes.size else 0)
+    levels = [np.unique(codes[:, :p], axis=0, return_inverse=True) for p in range(1, code_dim)]
+    sizes = [len(u) for u, _ in levels]
+    dead = 1 + sum(sizes)
+    children = np.full((dead + 1, width), dead, dtype=np.int64)
+    allowed = np.zeros((dead + 1, width), dtype=bool)
+    node = np.zeros(n_items, dtype=np.int64)  # each item's node at the current level
+    first = 1
+    for p in range(code_dim):
+        allowed[node, codes[:, p]] = True
+        if p + 1 < code_dim:
+            nxt = first + levels[p][1].reshape(-1)
+            children[node, codes[:, p]] = nxt
+            node, first = nxt, first + sizes[p]
+    return children, allowed

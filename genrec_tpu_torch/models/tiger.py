@@ -65,11 +65,10 @@ def make_constraint(cfg: TIGERConfig, codes: Optional[np.ndarray] = None) -> Con
     if cfg.constrained_decoding == "trie":
         if codes is None:
             raise ValueError("trie mode needs the item code table")
-        trie = tiger_tokens.build_code_trie(codes, a.vocab_size, cfg.codebook_size)
-        offsets = tiger_tokens.trie_prefix_offsets(cfg.codebook_size, steps)
-        return ConstraintSpec(mode="trie", trie=torch.from_numpy(trie),
-                              trie_offsets=torch.from_numpy(offsets).long(),
-                              codebook_size=cfg.codebook_size)
+        children, allowed = tiger_tokens.build_trie_nodes(codes, cfg.codebook_size)
+        return ConstraintSpec(mode="trie", trie_children=torch.from_numpy(children),
+                              trie_allowed=torch.from_numpy(allowed),
+                              codebook_size=cfg.codebook_size, token_base=1)
     raise ValueError(cfg.constrained_decoding)
 
 

@@ -16,6 +16,15 @@ tie exactly at −1e30 or −2e30: the top-k and the final ordering use
 STABLE sorts, keeping the lower flat index first on ties as
 ``lax.top_k`` and ``jnp.argsort`` do, so tokens match the reference
 exactly.
+
+Under the trie the search walks a node table over the prefixes that exist
+(``data/tiger_tokens.build_trie_nodes``) and sorts only the candidates that
+can win: each beam's W child tokens of the step's level (digit d is token
+``token_base + step·K + d``) and the first K + 1 tokens outside them. Every
+other token of a beam is ruled out (for a frozen beam: is not pad), so its
+candidate ties with those K + 1 at the beam's score − 1e30 and a stable
+sort ranks them first: the kept candidates, in flat-index order, give the
+top K of all K·V exactly, ties included.
 """
 
 from __future__ import annotations
@@ -35,16 +44,17 @@ class ConstraintSpec:
     """Decode-constraint tables (any device; moved to the search's)."""
 
     mode: str = "none"  # none | level | trie
-    level_masks: Optional[torch.Tensor] = None   # (steps, V) bool
-    trie: Optional[torch.Tensor] = None          # (total_prefixes, V) bool
-    trie_offsets: Optional[torch.Tensor] = None  # (steps,) int
+    level_masks: Optional[torch.Tensor] = None    # (steps, V) bool
+    trie_children: Optional[torch.Tensor] = None  # (nodes, W) int64, node 0 the root
+    trie_allowed: Optional[torch.Tensor] = None   # (nodes, W) bool
     codebook_size: int = 8
+    token_base: int = 1  # token of digit d at level p: token_base + p·codebook_size + d
 
     def to(self, device) -> "ConstraintSpec":
         move = lambda t: None if t is None else t.to(device)  # noqa: E731
         return dataclasses.replace(self, level_masks=move(self.level_masks),
-                                   trie=move(self.trie),
-                                   trie_offsets=move(self.trie_offsets))
+                                   trie_children=move(self.trie_children),
+                                   trie_allowed=move(self.trie_allowed))
 
 
 def beam_search(
@@ -88,8 +98,12 @@ def beam_search(
         scores = torch.full((B, K), _NEG_INF, dtype=torch.float32, device=device)
         scores[:, 0] = 0.0
         finished = torch.zeros((B, K), dtype=torch.bool, device=device)
-        prefix = torch.zeros((B, K), dtype=torch.int64, device=device)  # trie walk state
+        node = torch.zeros((B, K), dtype=torch.int64, device=device)  # trie walk state
         frozen_row = torch.full((V,), _NEG_INF, dtype=torch.float32, device=device)
+        if constraint.mode == "trie":
+            kc, width = constraint.codebook_size, constraint.trie_allowed.shape[1]
+            n_cand = K + 1 + width
+            slot = torch.arange(n_cand, device=device)
         row_base = torch.arange(0, B * K, K, device=device)[:, None] if reorder else None
         with wait_span("beam.search.wait", device):  # two scalars from pageable memory
             frozen_row[pad_token] = 0.0
@@ -99,35 +113,47 @@ def beam_search(
             with span("beam.decode"):
                 logits = decode_fn(tokens.view(B * K, max_len), step)  # (BK, V)
             with span("beam.select"):
-                logp = torch.log_softmax(logits.float(), dim=-1).view(B, K, V)
+                logp = torch.log_softmax(logits, dim=-1, dtype=torch.float32).view(B, K, V)
 
-                if constraint.mode == "level":
-                    logp = torch.where(constraint.level_masks[step][None, None, :], logp, neg)
-                elif constraint.mode == "trie":
-                    rows = constraint.trie_offsets[step] + prefix           # (B, K)
-                    logp = torch.where(constraint.trie[rows], logp, neg)    # (B, K, V)
+                if constraint.mode == "trie":
+                    lo = constraint.token_base + step * kc  # digit 0's token at this level
+                    below = min(K + 1, lo)
+                    if lo + n_cand - below > V:
+                        raise ValueError("the trie's tokens run past the vocabulary")
+                    cand_tok = torch.where(slot < below, slot, slot + (lo - below))  # (C,)
+                    col = cand_tok - lo
+                    allowed = (constraint.trie_allowed[node][:, :, col.clamp(0, width - 1)]
+                               & (col >= 0) & (col < width))                  # (B, K, C)
+                    logp = torch.gather(logp, 2, cand_tok.expand(B, K, n_cand))
+                    logp = torch.where(allowed, logp, neg)
+                    frozen = frozen_row[cand_tok]
+                else:
+                    if constraint.mode == "level":
+                        logp = torch.where(constraint.level_masks[step][None, None, :], logp, neg)
+                    cand_tok, frozen = None, frozen_row
 
                 # frozen beams may only extend with pad at zero cost
-                logp = torch.where(finished[:, :, None], frozen_row, logp)
+                logp = torch.where(finished[:, :, None], frozen, logp)
 
-                cand = (scores[:, :, None] + logp).view(B, K * V)
+                width_c = logp.shape[2]
+                cand = (scores[:, :, None] + logp).view(B, K * width_c)
                 top_scores, top_idx = torch.sort(cand, dim=1, descending=True, stable=True)
                 top_scores, top_idx = top_scores[:, :K], top_idx[:, :K]
-                beam_idx = top_idx // V
-                tok_idx = top_idx % V
+                beam_idx = top_idx // width_c
+                tok_idx = top_idx % width_c
+                if cand_tok is not None:
+                    tok_idx = cand_tok[tok_idx]
 
                 tokens = torch.gather(tokens, 1, beam_idx[:, :, None].expand(B, K, max_len))
                 tokens[:, :, step + 1] = tok_idx
                 finished = torch.gather(finished, 1, beam_idx)
-                prefix = torch.gather(prefix, 1, beam_idx)
                 scores = top_scores
 
                 if eos_token is not None:
                     finished = finished | (tok_idx == eos_token)
                 if constraint.mode == "trie":
-                    kc = constraint.codebook_size
-                    code = torch.clamp(tok_idx - (step * kc + 1), 0, kc - 1)
-                    prefix = prefix * kc + code
+                    code = torch.clamp(tok_idx - lo, 0, kc - 1)
+                    node = constraint.trie_children[torch.gather(node, 1, beam_idx), code]
                 if reorder is not None and step + 1 < steps:
                     reorder((beam_idx + row_base).view(B * K))
 

@@ -22,6 +22,10 @@ port leaves out; the spans are the port's own):
   those routes is a span whose name ends in ``.wait``. The decoder's
   incremental step counts the self-attention key positions it attends
   (``beam.decode.keys``) and those its cache held (``beam.decode.cached``).
+  DeepSeek-V2's recommendation (``models/deepseek_v2.py``) adds the spans
+  ``lm.prefill``, ``moe.route``, ``moe.experts``, ``moe.combine`` and
+  ``mla.decode``, the counters ``moe.rows`` and ``mla.cache.positions``,
+  and ``moe.busiest``, a counter kept on the card (:func:`count_device`).
 """
 
 from __future__ import annotations
@@ -65,6 +69,8 @@ def annotate(name: str):
 
 # name -> [count, host ns, longest ns, entries with the card drained]
 _registry: Dict[str, List[int]] = {}
+# name -> a device tensor of counts not yet added to the registry
+_device_counts: Dict[str, torch.Tensor] = {}
 _open: List[str] = []
 _OFF = contextlib.nullcontext()
 _recording = torch.autograd._profiler_enabled
@@ -125,9 +131,28 @@ def count(name: str, n: int) -> None:
         _registry.setdefault(name, [0, 0, 0, 0])[0] += n
 
 
+def recording() -> bool:
+    """Whether a ``torch.profiler`` session records now (spans and counters
+    are on)."""
+    return _recording()
+
+
+def count_device(name: str, n: torch.Tensor) -> None:
+    """:func:`count` of a 0-d integer tensor on a device, summed there with
+    no host sync; :func:`recorded` copies the sum to the host once. Off, one
+    flag check, as :func:`count`."""
+    if _recording():
+        held = _device_counts.get(name)
+        _device_counts[name] = n.detach().long() if held is None else held + n
+
+
 def recorded() -> Dict[str, Dict[str, float]]:
     """A copy of the registry: for each span name its ``count``,
-    ``seconds``, ``max_s`` and ``drained``."""
+    ``seconds``, ``max_s`` and ``drained``. Counts kept on a device are
+    read here (a copy each) and added first."""
+    for name, n in _device_counts.items():
+        _registry.setdefault(name, [0, 0, 0, 0])[0] += int(n)
+    _device_counts.clear()
     return {name: {"count": c, "seconds": ns / 1e9, "max_s": top / 1e9, "drained": d}
             for name, (c, ns, top, d) in _registry.items()}
 
@@ -135,6 +160,7 @@ def recorded() -> Dict[str, Dict[str, float]]:
 def reset() -> None:
     """Clear the registry's totals."""
     _registry.clear()
+    _device_counts.clear()
 
 
 def open_spans() -> List[str]:

@@ -90,4 +90,5 @@ def test_constraint_spec_moves_to_device():
     _, tc = _constraints("trie")
     moved = tc.to("cpu")
     assert dataclasses.asdict(moved).keys() == dataclasses.asdict(tc).keys()
-    assert moved.trie.dtype == torch.bool and moved.trie_offsets.tolist() == [0, 1, 9, 73]
+    assert moved.trie_allowed.dtype == torch.bool and moved.trie_children.dtype == torch.int64
+    assert moved.trie_allowed.shape == moved.trie_children.shape and moved.token_base == 1
